@@ -3,7 +3,7 @@
 `state_from_numpy(backend_name, tree)` builds the port's state from a
 reference state whose leaves are numpy arrays (or anything `np.asarray`
 takes): `DetSkiplist`, `FixedHash`, `TierState` (with its `SpillTier` or
-None). Fields are matched by name, u64 leaves become int64 views of the
+None), `PQState`. Fields are matched by name, u64 leaves become int64 views of the
 same bits, every other dtype is kept leaf for leaf. `state_to_numpy` is
 the inverse: the same structure with numpy leaves, u64 fields restored to
 uint64, so `tree_leaves` of both sides compare leaf for leaf.
@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.det_skiplist import DetSkiplist, LevelPlanes
 from repro_torch.core.hashtable import FixedHash
 from repro_torch.core.layout import resolve_device
+from repro_torch.store.pq import PQState
 from repro_torch.store.tiers import SpillTier, TierState
 
 # fields that hold u64 keys or values, per state type
@@ -24,10 +25,13 @@ _U64_FIELDS = {
     FixedHash: {"keys", "vals"},
     SpillTier: {"keys", "vals"},
     TierState: set(),
+    PQState: set(),
 }
 _NESTED = {TierState: {"hot": FixedHash, "cold": DetSkiplist,
-                       "spill": SpillTier}}
-_TIERED = ("hash+skiplist", "tiered3", "tiered3/lru", "tiered3/size")
+                       "spill": SpillTier},
+           PQState: {"heap": DetSkiplist}}
+_TIERED = ("hash+skiplist", "tiered3", "tiered3/lru", "tiered3/size",
+           "tiered3/b128")
 
 
 def _state_type(backend_name: str):
@@ -37,6 +41,8 @@ def _state_type(backend_name: str):
         return FixedHash
     if backend_name in _TIERED:
         return TierState
+    if backend_name == "pq":
+        return PQState
     raise KeyError(f"no state conversion for backend {backend_name!r}")
 
 

@@ -74,6 +74,15 @@ def hash64(x: torch.Tensor) -> torch.Tensor:
     return splitmix64(x)
 
 
+def make_priority_key(priority: torch.Tensor,
+                      ticket: torch.Tensor) -> torch.Tensor:
+    """(priority, ticket) -> orderable u64 bit pattern: priority in the
+    high 32 bits, the ticket's low 32 bits below it (the scheduler's key;
+    the ticket breaks ties in linearization order)."""
+    return (priority.to(torch.int64) << 32) | (ticket.to(torch.int64)
+                                               & 0xFFFFFFFF)
+
+
 def dup_in_run(same_as_prev: torch.Tensor, masked: torch.Tensor) -> torch.Tensor:
     """In-batch duplicate mask over a SORTED batch: True for every masked
     lane that is not the FIRST MASKED lane of its equal-key run.

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bits import KEY_INF, dup_in_run, ordered, u64_le
-from repro_torch.core.layout import (first_true, inverse_perm, kv_arrays,
-                                     scatter_drop)
+from repro_torch.core.layout import (bskiplist_layout, first_true,
+                                     inverse_perm, kv_arrays, scatter_drop)
 
 FANOUT = 4  # 1-2-3-4: arity in [2, 4]
 # compact when tombstones exceed COMPACT_NUM / COMPACT_DEN of the entries
@@ -165,6 +165,20 @@ def find_batch(s: DetSkiplist, queries: torch.Tensor):
         below = s.term_keys if l == 0 else s.level_keys[l - 1]
         idx = torch.clamp(start[:, None] + fan[None, :], 0, below.shape[0] - 1)
         i = start + first_true(u64_le(q, below[idx.long()]))
+    i = torch.clamp(i, 0, s.capacity - 1)
+    il = i.long()
+    found = ((s.term_keys[il] == queries) & ~s.term_mark[il]
+             & (queries != KEY_INF))
+    return found, torch.where(found, s.term_vals[il], 0), i
+
+
+def find_batch_blocked(s: DetSkiplist, queries: torch.Tensor):
+    """Batched Find through the block-major B-skiplist view
+    (`core.layout.bskiplist_layout`): the same contract and the same
+    found/vals as `find_batch`, in L + 1 whole-block compares (the walk
+    of `kernels.bskiplist_walk.ref.bskiplist_walk_ref`)."""
+    from repro_torch.kernels.bskiplist_walk.ref import bskiplist_walk_ref
+    _, i = bskiplist_walk_ref(queries, bskiplist_layout(s))
     i = torch.clamp(i, 0, s.capacity - 1)
     il = i.long()
     found = ((s.term_keys[il] == queries) & ~s.term_mark[il]
@@ -340,6 +354,43 @@ def range_query(s: DetSkiplist, lo: torch.Tensor, hi: torch.Tensor,
                     torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32)])
     count = cs[i_hi.long()] - cs[i_lo.long()]
     return count, s.term_keys[idx], s.term_vals[idx], valid
+
+
+# ---------------------------------------------------------------------------
+# Priority-queue extraction (pop-min as rank-select over the live prefix)
+# ---------------------------------------------------------------------------
+
+def pop_rank_select(s: DetSkiplist, ranks: torch.Tensor, mask: torch.Tensor):
+    """The rank-th smallest live key per lane (rank 0 = minimum). Returns
+    (found[K] bool, keys[K] int64, idx[K] int32); a pure read, committed
+    with `pop_mark`. Live = unmarked and not padding, the `range_query`
+    formula; the live total is `n_term - n_marked`. Lanes whose rank
+    exceeds the live population, or with mask False, return found=False,
+    keys=KEY_INF, idx=0. The first cell whose inclusive live prefix
+    reaches rank + 1 is a searchsorted-left over that prefix."""
+    C = s.capacity
+    live = (~s.term_mark) & (s.term_keys != KEY_INF)
+    prefix = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32)
+    total = s.n_term - s.n_marked
+    want = ranks.to(torch.int32) + 1
+    found = mask & (want >= 1) & (want <= total)
+    idx = torch.searchsorted(prefix, want, out_int32=True)
+    idx = torch.where(found, torch.clamp(idx, 0, C - 1), 0)
+    keys = torch.where(found, s.term_keys[idx.long()], KEY_INF)
+    return found, keys, idx
+
+
+def pop_mark(s: DetSkiplist, idx: torch.Tensor,
+             hit: torch.Tensor) -> DetSkiplist:
+    """Commit a batch of pops: tombstone the selected terminal cells (the
+    lazy path of `delete_batch`; index levels stay stale), then the
+    threshold compaction. Rows with hit=False are ignored; lanes target
+    distinct cells (distinct ranks)."""
+    mark = scatter_drop(s.term_mark, torch.where(hit, idx.long(), s.capacity),
+                        True)
+    s2 = s._replace(term_mark=mark,
+                    n_marked=s.n_marked + hit.sum().to(torch.int32))
+    return _maybe_compact(s2)
 
 
 # ---------------------------------------------------------------------------

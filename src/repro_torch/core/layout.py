@@ -220,6 +220,77 @@ def skiplist_layout(s) -> SkiplistLayout:
 
 
 # ---------------------------------------------------------------------------
+# block-major B-skiplist view (det_skiplist -> bskiplist_walk kernel)
+# ---------------------------------------------------------------------------
+
+# One B-skiplist node holds this many sorted keys (a warp reads a node as
+# 32 lanes x 4 keys).
+BSKIP_BLOCK = 128
+
+
+class BSkiplistLayout(NamedTuple):
+    """The deterministic skiplist re-blocked into fat nodes of `BSKIP_BLOCK`
+    sorted keys, derived at probe time from the unchanged state.
+
+    Index rows are stacked bottom-up into `blk` ([L, W], row L-1 is the
+    root node; node j of a row spans cells [j*B, (j+1)*B); W = the widest
+    row's node count * B, `KEY_INF` padding). Row 0 holds the maxima of
+    the NB = ceil(C / B) terminal blocks; each row above holds the maxima
+    of the nodes of the row below. The reference pads the terminal planes
+    to NB*B cells; here they are the state's own [C] planes, read with
+    the padded length `n_pad`: a read at or past C sees a `KEY_INF` key
+    and mark 0, so nothing of size C is copied per dispatch."""
+    blk: torch.Tensor        # [L, W] int64 index-node entries
+    term_keys: torch.Tensor  # [C] int64
+    term_mark: torch.Tensor  # [C] int8 tombstones
+    n_pad: int               # NB * B
+
+    @property
+    def num_levels(self) -> int:
+        return self.blk.shape[0]
+
+
+def bskip_num_levels(capacity: int, block: int = BSKIP_BLOCK) -> int:
+    """Index rows a `bskiplist_layout` over `capacity` terminals has; the
+    blocked walk makes this + 1 whole-block compares."""
+    nb = -(-capacity // block)
+    levels = 1
+    while -(-nb // block) > 1:
+        nb = -(-nb // block)
+        levels += 1
+    return levels
+
+
+def bskiplist_layout(s, block: int = BSKIP_BLOCK) -> BSkiplistLayout:
+    """DetSkiplist (or any state with sorted, KEY_INF-padded `term_keys`
+    and `term_mark`) -> block-major view. A block's maximum is its LAST
+    entry (blocks are sorted, padding at the end), so every row is a
+    strided view of the row below: row 0 is `term_keys[B-1::B]` (plus a
+    `KEY_INF` maximum for a ragged last block). Only the ~C/B index cells
+    are written."""
+    B = block
+    C = s.term_keys.shape[0]
+    n = -(-C // B)                       # terminal blocks = row-0 entries
+    blk = torch.full((bskip_num_levels(C, B), -(-n // B) * B), KEY_INF,
+                     dtype=torch.int64, device=s.term_keys.device)
+    blk[0, :C // B] = s.term_keys[B - 1::B]
+    for r in range(1, blk.shape[0]):
+        nodes = -(-n // B)               # nodes of row r - 1 = entries of r
+        blk[r, :nodes] = blk[r - 1, B - 1:nodes * B:B]
+        n = nodes
+    return BSkiplistLayout(blk=blk, term_keys=s.term_keys.contiguous(),
+                           term_mark=s.term_mark.view(torch.int8),
+                           n_pad=-(-C // B) * B)
+
+
+def warm_layout_of(cold, warm_layout: str):
+    """The warm tier's view for the fused tier kernels: the block-major
+    B-skiplist rows (`"block"`) or the level-major levels (`"level"`)."""
+    return bskiplist_layout(cold) if warm_layout == "block" else \
+        skiplist_layout(cold)
+
+
+# ---------------------------------------------------------------------------
 # bucket-major hash view (FixedHash -> hash_probe kernel)
 # ---------------------------------------------------------------------------
 

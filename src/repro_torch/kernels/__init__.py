@@ -11,4 +11,6 @@ skiplist_search   det-skiplist FIND (level walk)
 hash_probe        fixed-hash bucket probe
 tier_find         fused hot -> warm -> spill FIND
 tier_apply        fused tier-apply prologue (membership + hot insert plan)
+bskiplist_walk    det-skiplist FIND through the block-major B-skiplist view
+pq_pop            priority-queue rank-select over the live prefix + walk
 """

@@ -1,9 +1,10 @@
 // Shared device-side probe bodies of the store kernels (sm_90a).
 //
 // The reference Pallas kernels share their bodies the same way:
-// `bucket_probe` (kernels/hash_probe), `level_walk` (kernels/skiplist_search)
-// and `spill_run_probe` (kernels/tier_find) are each written once and reused
-// by the fused tier kernels. Keys arrive as int64 bit patterns and are
+// `bucket_probe` (kernels/hash_probe), `level_walk` (kernels/skiplist_search),
+// `block_walk` (kernels/bskiplist_walk) and `spill_run_probe`
+// (kernels/tier_find) are each written once and reused by the fused tier
+// kernels and the pq pop. Keys arrive as int64 bit patterns and are
 // compared here as unsigned 64-bit integers: the card has native u64 compares,
 // so the TPU's (hi, lo) u32 split does not exist on this side.
 //
@@ -13,6 +14,9 @@
 //     [L, C1] rectangle: a level index is clipped to [0, c1 - 1], and a read
 //     past the level's own capacity sees the rectangle's padding (KEY_INF
 //     key, child 0); terminal reads clip to [0, C - 1];
+//   * the block walk clips a node id to [0, W/B - 1] on every index row and
+//     the terminal block to [0, NB - 1], and reads the terminal planes with
+//     the padded length NB*B: a cell at or past C is a KEY_INF key, mark 0;
 //   * the hot column of a miss is 0;
 //   * the spill cell of a miss is the clipped search position in run 0.
 #pragma once
@@ -96,6 +100,74 @@ __device__ __forceinline__ bool level_walk(u64 q, const u64* lvl_keys,
   return term_keys[i] == q && term_mark[i] == 0;
 }
 
+// Keys per B-skiplist node (core.layout.BSKIP_BLOCK).
+#define BSKIP_B 128
+
+// How many of the B entries node[start + j] (j < B) are below q; an entry
+// at or past `cap` is padding (KEY_INF, never below q). TEAM = 1: one
+// thread reads the whole node. TEAM = 32: the calling warp reads it, lane l
+// taking entries l, l + 32, l + 64, l + 96 (each round one coalesced 256-byte
+// read), and a ballot counts the compares; every lane gets the count. The
+// count does not depend on the order of the entries.
+template <int TEAM>
+__device__ __forceinline__ int node_count_lt(const u64* node, int start,
+                                             int cap, u64 q) {
+  static_assert(TEAM == 1 || TEAM == 32, "a thread or a warp");
+  const int lane = TEAM == 1 ? 0 : (threadIdx.x & 31);
+  int n = 0;
+#pragma unroll 4
+  for (int j = lane; j < BSKIP_B; j += TEAM) {
+    int c = start + j;
+    bool lt = c < cap && node[c] < q;
+    if (TEAM == 1)
+      n += lt ? 1 : 0;
+    else
+      n += __popc(__ballot_sync(0xffffffffu, lt));
+  }
+  return n;
+}
+
+// Block-major B-skiplist descent: one whole-node count per index row, from
+// the root (node 0 of row levels - 1) down, the child being base + count;
+// then the count in the terminal block, and the exact match with the
+// tombstone. `blk` is the [levels, w] row stack; the terminal planes hold
+// `cap` cells read with the padded length n_pad = NB * B. Returns found;
+// *idx = terminal index (clipped to [0, n_pad - 1]). Under TEAM = 32 every
+// lane of the warp must call it, and every lane gets the result.
+template <int TEAM>
+__device__ __forceinline__ bool block_walk(u64 q, const u64* blk, int levels,
+                                           int w, const u64* term_keys,
+                                           const int8_t* term_mark, int cap,
+                                           int n_pad, int* idx) {
+  int i = 0;
+  for (int r = levels - 1; r >= 0; --r) {
+    int base = clampi(i, 0, w / BSKIP_B - 1) * BSKIP_B;
+    i = base + node_count_lt<TEAM>(blk + (long long)r * w, base, w, q);
+  }
+  int tb = clampi(i, 0, n_pad / BSKIP_B - 1) * BSKIP_B;
+  i = clampi(tb + node_count_lt<TEAM>(term_keys, tb, cap, q), 0, n_pad - 1);
+  *idx = i;
+  if (i >= cap) return q == KEY_INF_U64;   // padding: KEY_INF key, mark 0
+  return term_keys[i] == q && term_mark[i] == 0;
+}
+
+// The warm tier's walk in either layout: `blocked` selects the block-major
+// rows (`keys` = the [levels, width] row stack, `child` and `off` unused) or
+// the level-major levels (`keys` / `child` flat, `off` the level offsets,
+// width = c1). One thread per query.
+__device__ __forceinline__ bool warm_walk(u64 q, int blocked, const u64* keys,
+                                          const int* child, const int* off,
+                                          int levels, int width,
+                                          const u64* term_keys,
+                                          const int8_t* term_mark, int cap,
+                                          int n_pad, int* idx) {
+  if (blocked)
+    return block_walk<1>(q, keys, levels, width, term_keys, term_mark, cap,
+                         n_pad, idx);
+  return level_walk(q, keys, child, off, levels, width, term_keys, term_mark,
+                    cap, idx);
+}
+
 // Cold-tier probe: searchsorted-left of q in every sorted run
 // [off[r], off[r + 1]) of the spill planes; the first live match wins.
 // Returns found; *cell = matched cell, or the clipped position in run 0.
@@ -127,4 +199,34 @@ __device__ __forceinline__ bool spill_probe(u64 q, const u64* sp_keys,
 __device__ __forceinline__ void load_table(int* dst, const int* src, int n) {
   for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = src[t];
   __syncthreads();
+}
+
+// Exclusive prefix of v over the block (blockDim.x a multiple of 32, at most
+// 1024); *total receives the block sum. Every thread of the block must call
+// it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
+  __shared__ int warp_sums[32];
+  int lane = threadIdx.x & 31;
+  int warp = threadIdx.x >> 5;
+  int nw = blockDim.x >> 5;
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nw ? warp_sums[lane] : 0;
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;
+  }
+  __syncthreads();
+  int excl = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  *total = warp_sums[nw - 1];
+  __syncthreads();
+  return excl;
 }

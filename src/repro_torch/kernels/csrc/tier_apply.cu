@@ -2,8 +2,10 @@
 // the hot-tier insert linearization and the eviction policy's victim choice.
 //
 // Replaces the Pallas kernel `tier_apply_tiles` / `_ta_kernel` /
-// `spill_chunk_probe` in src/repro/kernels/tier_apply/kernel.py (level-major
-// warm walk, with and without spill, policies none / lru / size). Lanes come
+// `spill_chunk_probe` in src/repro/kernels/tier_apply/kernel.py (both warm
+// layouts: the level-major `level_walk` or, with `blocked`, the block-major
+// `block_walk<1>` of the reference's `warm_blocked` branch; with and without
+// spill; policies none / lru / size). Lanes come
 // in sorted (slot, key) order with the key-run and slot-run starts
 // precomputed by the glue; the nine outputs are the reference's, in the same
 // lane order: in_warm, in_spill, placed, exists, dup, need_ev (int8) and col,
@@ -11,7 +13,7 @@
 //
 // Two launches:
 //   1. `tier_apply_member_kernel`, one thread per lane: the membership probes
-//      (bucket probe, level walk, binary search of every spill run straight
+//      (bucket probe, warm walk, binary search of every spill run straight
 //      from HBM; the TPU's chunked spill streaming and scalar prefetch exist
 //      only because of VMEM and give the same found bit), the miss
 //      fall-through, and the lane's pre-batch bucket row: existence column,
@@ -34,18 +36,19 @@
 __global__ void tier_apply_member_kernel(
     const u64* __restrict__ sk, const int* __restrict__ ss,
     const int8_t* __restrict__ sm, int k, const u64* __restrict__ hot_keys,
-    const int* __restrict__ meta, int m, int b,
-    const u64* __restrict__ lvl_keys, const int* __restrict__ lvl_child,
-    const int* __restrict__ lvl_off, int levels, int c1,
+    const int* __restrict__ meta, int m, int b, int blocked,
+    const u64* __restrict__ warm_keys, const int* __restrict__ lvl_child,
+    const int* __restrict__ lvl_off, int levels, int width,
     const u64* __restrict__ term_keys, const int8_t* __restrict__ term_mark,
-    int cap, const u64* __restrict__ sp_keys, const int8_t* __restrict__ sp_dead,
-    const int* __restrict__ run_off, int runs, int s, int policy,
+    int cap, int n_pad, const u64* __restrict__ sp_keys,
+    const int8_t* __restrict__ sp_dead, const int* __restrict__ run_off,
+    int runs, int s, int policy,
     int8_t* __restrict__ in_warm, int8_t* __restrict__ in_spill,
     int* __restrict__ ecol, int8_t* __restrict__ flags, int* __restrict__ emask,
     u64* __restrict__ vorder) {
   __shared__ int off[MAX_LEVELS + 1];
   __shared__ int roff[MAX_RUNS + 1];
-  load_table(off, lvl_off, levels + 1);
+  if (!blocked) load_table(off, lvl_off, levels + 1);
   if (runs > 0) load_table(roff, run_off, runs + 1);
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= k) return;
@@ -56,8 +59,9 @@ __global__ void tier_apply_member_kernel(
   u64 mq = smb ? key : KEY_INF_U64;
   int unused;
   bool f_hot = bucket_probe(mq, ss[i], hot_keys, m, b, &unused) && smb;
-  bool f_warm = level_walk(mq, lvl_keys, lvl_child, off, levels, c1, term_keys,
-                           term_mark, cap, &unused) && smb;
+  bool f_warm = warm_walk(mq, blocked, warm_keys, lvl_child, off, levels,
+                          width, term_keys, term_mark, cap, n_pad, &unused) &&
+                smb;
   bool f_sp = runs > 0 &&
               spill_probe(mq, sp_keys, sp_dead, roff, runs, s, &unused) && smb;
   bool iw = f_warm && !f_hot;
@@ -100,35 +104,6 @@ __global__ void tier_apply_member_kernel(
     }
     vorder[i] = packed;
   }
-}
-
-// Exclusive prefix of v over the block (blockDim.x a multiple of 32);
-// *total receives the block sum. Every thread of the block must call it.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[32];
-  int lane = threadIdx.x & 31;
-  int warp = threadIdx.x >> 5;
-  int nw = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nw ? warp_sums[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  int excl = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
-  *total = warp_sums[nw - 1];
-  __syncthreads();
-  return excl;
 }
 
 __global__ void tier_apply_scan_kernel(
@@ -221,10 +196,11 @@ __global__ void tier_apply_scan_kernel(
 
 extern "C" int tier_apply_member_launch(
     const void* sk, const void* ss, const void* sm, int k, const void* hot_keys,
-    const void* meta, int m, int b, const void* lvl_keys, const void* lvl_child,
-    const void* lvl_off, int levels, int c1, const void* term_keys,
-    const void* term_mark, int cap, const void* sp_keys, const void* sp_dead,
-    const void* run_off, int runs, int s, int policy, void* in_warm,
+    const void* meta, int m, int b, int blocked, const void* warm_keys,
+    const void* lvl_child, const void* lvl_off, int levels, int width,
+    const void* term_keys, const void* term_mark, int cap, int n_pad,
+    const void* sp_keys, const void* sp_dead, const void* run_off, int runs,
+    int s, int policy, void* in_warm,
     void* in_spill, void* ecol, void* flags, void* emask, void* vorder,
     void* stream) {
   if (k == 0) return 0;
@@ -232,10 +208,11 @@ extern "C" int tier_apply_member_launch(
   tier_apply_member_kernel<<<(k + threads - 1) / threads, threads, 0,
                              (cudaStream_t)stream>>>(
       (const u64*)sk, (const int*)ss, (const int8_t*)sm, k,
-      (const u64*)hot_keys, (const int*)meta, m, b, (const u64*)lvl_keys,
-      (const int*)lvl_child, (const int*)lvl_off, levels, c1,
-      (const u64*)term_keys, (const int8_t*)term_mark, cap, (const u64*)sp_keys,
-      (const int8_t*)sp_dead, (const int*)run_off, runs, s, policy,
+      (const u64*)hot_keys, (const int*)meta, m, b, blocked,
+      (const u64*)warm_keys, (const int*)lvl_child, (const int*)lvl_off, levels,
+      width, (const u64*)term_keys, (const int8_t*)term_mark, cap, n_pad,
+      (const u64*)sp_keys, (const int8_t*)sp_dead, (const int*)run_off, runs, s,
+      policy,
       (int8_t*)in_warm, (int8_t*)in_spill, (int*)ecol, (int8_t*)flags,
       (int*)emask, (u64*)vorder);
   return (int)cudaGetLastError();

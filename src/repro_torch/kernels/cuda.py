@@ -15,7 +15,9 @@ no fallback to the plain versions.
 
 `LAUNCHES` counts kernel launches by kernel name: each wrapper adds one
 where it launches a kernel and nowhere else, so a run can show that a
-path went through the kernels.
+path went through the kernels. The two fused tier kernels also count by
+warm layout (`tier_find/level`, `tier_find/block`, ...), so a run can show
+which walk they took.
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply")
+KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply",
+           "bskiplist_walk", "pq_pop")
+WARM_LAYOUTS = ("level", "block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -41,16 +45,22 @@ _SIGNATURES = {
     "skiplist_search_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                                _P],
     "hash_probe_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
-    "tier_find_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P,
-                         _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "tier_apply_member_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
-                                 _I, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I,
-                                 _P, _P, _P, _P, _P, _P, _P],
+    "tier_find_launch": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P,
+                         _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                         _P, _P],
+    "tier_apply_member_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
+                                 _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
+                                 _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "tier_apply_scan_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P, _P],
+    "bskiplist_walk_launch": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                      _I, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES.update({f"{name}/{lay}": 0 for name in ("tier_find", "tier_apply")
+                 for lay in WARM_LAYOUTS})
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -124,15 +134,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, fn: str, *args) -> None:
+def launch(kernel: str, fn: str, *args, layout: str | None = None) -> None:
     """Call launcher `fn` of kernel library `kernel` on the current stream
-    and count one launch of `kernel`; raise on a launch error."""
+    and count one launch of `kernel` (and of `kernel/layout` when a warm
+    layout is given); raise on a launch error."""
     lib = library(kernel)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
+    if layout is not None:
+        LAUNCHES[f"{kernel}/{layout}"] += 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
@@ -149,3 +162,24 @@ def check_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+
+
+def warm_args(name: str, warm):
+    """The warm-walk arguments shared by the fused tier launchers (blocked,
+    keys, child, offsets, levels, width, term keys, term mark, C, padded
+    length) and the layout's name for the launch count; `warm` is a
+    `SkiplistLayout` or a `BSkiplistLayout` (`core.layout`)."""
+    from repro_torch.core.layout import BSkiplistLayout
+    if warm.num_levels > 64:
+        raise ValueError(f"{name}: at most 64 index levels")
+    if isinstance(warm, BSkiplistLayout):
+        check_cuda(name, warm.blk, warm.term_keys, warm.term_mark)
+        return (1, ptr(warm.blk), None, None, warm.num_levels,
+                warm.blk.shape[1], ptr(warm.term_keys), ptr(warm.term_mark),
+                warm.term_keys.shape[0], warm.n_pad), "block"
+    check_cuda(name, warm.lvl_keys, warm.lvl_child, warm.lvl_off,
+               warm.term_keys, warm.term_mark)
+    cap = warm.term_keys.shape[0]
+    return (0, ptr(warm.lvl_keys), ptr(warm.lvl_child), ptr(warm.lvl_off),
+            warm.num_levels, warm.c1, ptr(warm.term_keys),
+            ptr(warm.term_mark), cap, cap), "level"

@@ -11,9 +11,9 @@ import torch
 
 from repro_torch.core import hashtable as ht
 from repro_torch.core.bits import EMPTY
-from repro_torch.core.layout import (hash_slot, inverse_perm, scatter_drop,
-                                     skiplist_layout, spill_layout,
-                                     val_weight)
+from repro_torch.core.layout import (BSkiplistLayout, SkiplistLayout,
+                                     hash_slot, inverse_perm, scatter_drop,
+                                     spill_layout, val_weight)
 from repro_torch.kernels.tier_apply.kernel import tier_apply_tiles
 from repro_torch.kernels.tier_apply.ref import _empty_apply
 
@@ -38,9 +38,11 @@ def sorted_lanes(num_slots: int, keys, vals, mask):
 
 
 def tier_apply_fused(hot, meta, clock, cold, spill, keys, vals, mask,
-                     policy: str, max_evict):
+                     policy: str, max_evict,
+                     warm: SkiplistLayout | BSkiplistLayout):
     """One dispatch over the whole apply prologue; the same 9-tuple as
-    `ref.tier_apply_ref`."""
+    `ref.tier_apply_ref`. `warm` is the warm tier's view, which picks the
+    warm membership walk (`core.layout.warm_layout_of`)."""
     K = keys.shape[0]
     M, B = hot.num_slots, hot.bucket
     dev = keys.device
@@ -52,8 +54,7 @@ def tier_apply_fused(hot, meta, clock, cold, spill, keys, vals, mask,
     sp = (None if spill is None else
           spill_layout(spill.keys, spill.dead, spill.run_start, spill.n))
     out = tier_apply_tiles(sk, ss, sm, krs, srs, hot.keys.contiguous(),
-                           meta.contiguous(), skiplist_layout(cold), max_ev,
-                           sp, policy)
+                           meta.contiguous(), warm, max_ev, sp, policy)
     in_warm, in_spill, placed, exists, dup, need_ev = (o.bool()
                                                        for o in out[:6])
     col, vcol, ecol = out[6:]

@@ -17,12 +17,12 @@ import torch
 
 from repro_torch.core import hashtable as ht
 from repro_torch.core.bits import EMPTY, KEY_INF
-from repro_torch.core.layout import (SkiplistLayout, SpillLayout, first_true,
-                                     scatter_drop, val_weight)
+from repro_torch.core.layout import (BSkiplistLayout, SkiplistLayout,
+                                     SpillLayout, first_true, scatter_drop,
+                                     val_weight)
 from repro_torch.kernels.hash_probe.ref import hash_probe_ref
-from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
 from repro_torch.kernels.tier_find.ref import (spill_run_probe_ref,
-                                               tier_find_ref)
+                                               tier_find_ref, warm_walk_ref)
 
 POLICY_CODES = {"none": 0, "lru": 1, "size": 2}
 _I32_MAX = 2**31 - 1
@@ -86,15 +86,16 @@ def _empty_apply(hot, meta, keys):
 
 
 def tier_apply_ref(hot, meta, clock, cold, spill, keys, vals, mask,
-                   policy: str, max_evict):
+                   policy: str, max_evict, warm_layout: str = "level"):
     """The fused-apply prologue at state level. Returns (hot', meta',
     in_warm[K], in_spill[K], ins[K], exists[K], ev_key[K], ev_val[K],
-    ev_mask[K])."""
+    ev_mask[K]); `warm_layout` picks the warm membership walk."""
     K = keys.shape[0]
     if K == 0:
         return _empty_apply(hot, meta, keys)
     qk = torch.where(mask, keys, KEY_INF)
-    (f_hot, _, _), (f_warm, _), (f_sp, _) = tier_find_ref(hot, cold, spill, qk)
+    (f_hot, _, _), (f_warm, _), (f_sp, _) = tier_find_ref(
+        hot, cold, spill, qk, warm_layout)
     in_warm = f_warm & ~f_hot
     in_spill = f_sp & ~f_hot & ~f_warm
     try_hot = mask & ~in_warm & ~in_spill
@@ -109,7 +110,7 @@ def tier_apply_ref(hot, meta, clock, cold, spill, keys, vals, mask,
 
 
 def tier_apply_planes_ref(sk, ss, sm, krs, srs, hot_keys, meta,
-                          warm: SkiplistLayout, max_evict,
+                          warm: SkiplistLayout | BSkiplistLayout, max_evict,
                           spill: SpillLayout | None, policy: str):
     """The fused kernel on its planes. sk: [K] int64 keys in sorted
     (slot, key) lane order; ss/krs/srs: [K] int32 (slot, key-run start,
@@ -124,7 +125,7 @@ def tier_apply_planes_ref(sk, ss, sm, krs, srs, hot_keys, meta,
 
     # membership compose + fall-through
     f_hot = hash_probe_ref(mq, ss, hot_keys)[0].bool() & smb
-    f_warm = skiplist_search_ref(mq, warm)[0].bool() & smb
+    f_warm = warm_walk_ref(mq, warm)[0].bool() & smb
     if spill is not None:
         f_sp = spill_run_probe_ref(mq, spill.keys, spill.dead,
                                    spill.run_off)[0] & smb

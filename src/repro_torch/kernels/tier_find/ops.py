@@ -1,26 +1,29 @@
-"""Glue: tier-stack state -> bucket / level / spill views -> ONE fused
-tier_find launch. Value gathers happen here; the fall-through masking
-lives in `store.exec.tier_find`, shared with the plain path."""
+"""Glue: tier-stack state -> bucket / warm (level or block) / spill views
+-> ONE fused tier_find launch. Value gathers happen here; the fall-through
+masking lives in `store.exec.tier_find`, shared with the plain path."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.bits import KEY_INF
-from repro_torch.core.layout import hash_slot, skiplist_layout, spill_layout
+from repro_torch.core.layout import (BSkiplistLayout, SkiplistLayout,
+                                     hash_slot, spill_layout)
 from repro_torch.kernels.tier_find.kernel import tier_find_tiles
 
 
-def tier_find_fused(hot, cold, spill, queries: torch.Tensor):
+def tier_find_fused(hot, cold, spill, queries: torch.Tensor,
+                    warm: SkiplistLayout | BSkiplistLayout):
     """One dispatch over the whole tier stack. Returns ((found, vals, col),
     (found, vals), (found, vals)), the raw per-tier contract of
-    `ref.tier_find_ref`."""
+    `ref.tier_find_ref`. `warm` is the warm tier's view, which picks the
+    warm walk (`core.layout.warm_layout_of`)."""
     queries = queries.contiguous()
     t = queries.shape[0]
     slots = hash_slot(queries, hot.num_slots)
     sp = (None if spill is None else
           spill_layout(spill.keys, spill.dead, spill.run_start, spill.n))
     out = tier_find_tiles(queries, slots, hot.keys.contiguous(),
-                          skiplist_layout(cold), sp)
+                          warm, sp)
     valid = queries != KEY_INF
     f_hot = out[0].bool() & valid
     c_hot = out[1]

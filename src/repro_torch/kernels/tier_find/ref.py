@@ -5,7 +5,7 @@
   parallel, the first live match wins; a miss reports the clipped search
   position in run 0.
 * `tier_find_planes_ref` — the whole kernel on its planes (hot bucket
-  probe, warm level walk, spill probe), raw per-tier results.
+  probe, warm level or block walk, spill probe), raw per-tier results.
 * `spill_run_cells` / `spill_find_runs` / `tier_find_ref` — the
   state-level references (counterparts of the JAX `ref.py`); the `torch`
   exec mode runs `tier_find_ref`, and the tier stack's tombstone path
@@ -16,8 +16,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.bits import KEY_INF, ordered
-from repro_torch.core.layout import (SkiplistLayout, SpillLayout,
-                                     first_true, run_offsets)
+from repro_torch.core.layout import (BSkiplistLayout, SkiplistLayout,
+                                     SpillLayout, first_true, run_offsets)
+from repro_torch.kernels.bskiplist_walk.ref import bskiplist_walk_ref
 from repro_torch.kernels.hash_probe.ref import hash_probe_ref
 from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
 
@@ -47,13 +48,22 @@ def spill_run_probe_ref(q: torch.Tensor, keys: torch.Tensor,
     return live.any(dim=1), cell
 
 
+def warm_walk_ref(q: torch.Tensor, warm: SkiplistLayout | BSkiplistLayout):
+    """The warm walk of the fused kernels in the view's layout: (found
+    int8, idx int32)."""
+    if isinstance(warm, BSkiplistLayout):
+        return bskiplist_walk_ref(q, warm)
+    return skiplist_search_ref(q, warm)
+
+
 def tier_find_planes_ref(q: torch.Tensor, slots: torch.Tensor,
-                         hot_keys: torch.Tensor, warm: SkiplistLayout,
+                         hot_keys: torch.Tensor,
+                         warm: SkiplistLayout | BSkiplistLayout,
                          spill: SpillLayout | None = None):
     """The fused kernel's raw outputs: (hot int8, col int32, warm int8,
     idx int32) plus (spill int8, cell int32) when `spill` is given."""
     hot, col = hash_probe_ref(q, slots, hot_keys)
-    wf, widx = skiplist_search_ref(q, warm)
+    wf, widx = warm_walk_ref(q, warm)
     out = (hot, col, wf, widx)
     if spill is not None:
         sf, cell = spill_run_probe_ref(q, spill.keys, spill.dead,
@@ -76,14 +86,18 @@ def spill_find_runs(keys, vals, dead, run_start, n, queries):
     return found, torch.where(found, vals[cell.long()], 0)
 
 
-def tier_find_ref(hot, cold, spill, queries):
+def tier_find_ref(hot, cold, spill, queries, warm_layout: str = "level"):
     """Raw per-tier probes with the reference implementations:
     ((hot found, vals, col), (warm found, vals), (spill found, vals));
-    spill=None yields all-miss spill results."""
+    spill=None yields all-miss spill results. The warm probe walks the
+    stack's layout: `find_batch` (level) or `find_batch_blocked` (block),
+    the same found/vals either way."""
     from repro_torch.core import det_skiplist as dsl
     from repro_torch.core import hashtable as ht
     f_hot, v_hot, c_hot = ht.fixed_find_cols(hot, queries)
-    f_warm, v_warm, _ = dsl.find_batch(cold, queries)
+    warm_find = (dsl.find_batch_blocked if warm_layout == "block"
+                 else dsl.find_batch)
+    f_warm, v_warm, _ = warm_find(cold, queries)
     if spill is None:
         f_sp = torch.zeros(queries.shape, dtype=torch.bool,
                            device=queries.device)

@@ -2,11 +2,12 @@
 
 * `OpPlan` — a batch of K ops as parallel tensors (ops int32, keys and
   vals as int64 u64 bit patterns, mask bool); one linearization unit with
-  the order INSERTS -> DELETES -> RANGE_DELETES -> FINDS, first lane wins
-  on in-batch duplicates.
+  the order INSERTS -> DELETES -> RANGE_DELETES -> POPS -> FINDS, first
+  lane wins on in-batch duplicates.
 * `OpResults` — per-lane (ok, vals): FIND -> (hit, value); INSERT ->
   (applied or existed, existed flag); DELETE -> (removed, 0);
-  RANGE_DELETE -> (any deleted, count).
+  RANGE_DELETE -> (any deleted, count); POPMIN / POPK -> (popped, the
+  popped value / key).
 * `STATS_SCHEMA` / `uniform_stats` — the closed occupancy key set.
 * the registry — backends register under their reference names.
 """
@@ -108,7 +109,7 @@ def register(backend: Store) -> Store:
 
 
 def _ensure_builtin() -> None:
-    from repro_torch.store import backends, tiers  # noqa: F401
+    from repro_torch.store import backends, pq, tiers  # noqa: F401
 
 
 def get_backend(name: str) -> Store:

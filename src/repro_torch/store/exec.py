@@ -5,8 +5,9 @@ through here, so the implementation is swappable without touching
 backend logic. Two modes, bit-identical for all integer work:
 
   torch  the plain PyTorch versions (the references the JAX `jnp` mode
-         runs: `core.det_skiplist.find_batch`, `core.hashtable.
-         fixed_find_cols`, `kernels.tier_find.ref.tier_find_ref`,
+         runs: `core.det_skiplist.find_batch` / `find_batch_blocked` /
+         `pop_rank_select`, `core.hashtable.fixed_find_cols`,
+         `kernels.tier_find.ref.tier_find_ref`,
          `kernels.tier_apply.ref.tier_apply_ref`) — CPU or CUDA tensors
   gpu    the hand-written CUDA kernels (`kernels/*`), the default; CPU
          tensors raise
@@ -27,6 +28,7 @@ from contextvars import ContextVar
 
 import torch
 
+from repro_torch.core.layout import warm_layout_of
 from repro_torch.store import obs
 
 MODES = ("torch", "gpu")
@@ -146,6 +148,34 @@ def skiplist_find(s, queries, mode: str | None = None):
     return fn(s, queries)
 
 
+@_entry("probe")
+def bskiplist_find(s, queries, mode: str | None = None):
+    """Deterministic-skiplist FIND through the block-major B-skiplist view
+    (`core.layout.bskiplist_layout`): the contract and the found/vals of
+    `skiplist_find`, in one 128-key node compare per row; the warm probe
+    of the unfused `tiered3/b128`."""
+    if _resolve(mode) == "torch":
+        from repro_torch.core import det_skiplist as dsl
+        return dsl.find_batch_blocked(s, queries)
+    _gpu_tensors("bskiplist_find", queries)
+    from repro_torch.kernels.bskiplist_walk.ops import bskiplist_find as fn
+    return fn(s, queries)
+
+
+@_entry("probe")
+def pq_pop(s, ranks, mask, mode: str | None = None):
+    """Priority-queue rank-select on a DetSkiplist: the rank-th smallest
+    live key per lane. Returns (found[K], keys[K], idx[K] int32), a pure
+    read committed by the pq backend with `pop_mark`. Both modes mask a
+    lane that is not found the same way (keys KEY_INF, idx 0)."""
+    if _resolve(mode) == "torch":
+        from repro_torch.core import det_skiplist as dsl
+        return dsl.pop_rank_select(s, ranks, mask)
+    _gpu_tensors("pq_pop", ranks)
+    from repro_torch.kernels.pq_pop.ops import pq_pop_ranks
+    return pq_pop_ranks(s, ranks, mask)
+
+
 def _hash_probe(h, queries, mode):
     if _resolve(mode) == "torch":
         from repro_torch.core import hashtable as ht
@@ -178,18 +208,22 @@ def spill_find(sp, queries, mode: str | None = None):
 
 
 @_entry("probe")
-def tier_find(hot, cold, spill, queries, mode: str | None = None):
+def tier_find(hot, cold, spill, queries, mode: str | None = None,
+              warm_layout: str = "level"):
     """FUSED tier-stack FIND as ONE dispatch, with the miss fall-through
     (a warm hit counts only on a hot miss, a spill hit only on a hot+warm
-    miss). Returns ((hot found, vals, col), (warm found, vals),
-    (spill found, vals))."""
+    miss). The warm walk is level-major or, with `warm_layout="block"`,
+    the block-major B-skiplist walk (the same results). Returns ((hot
+    found, vals, col), (warm found, vals), (spill found, vals))."""
     if _resolve(mode) == "torch":
         from repro_torch.kernels.tier_find.ref import tier_find_ref
-        hot_r, warm_r, sp_r = tier_find_ref(hot, cold, spill, queries)
+        hot_r, warm_r, sp_r = tier_find_ref(hot, cold, spill, queries,
+                                            warm_layout)
     else:
         _gpu_tensors("tier_find", queries)
         from repro_torch.kernels.tier_find.ops import tier_find_fused
-        hot_r, warm_r, sp_r = tier_find_fused(hot, cold, spill, queries)
+        hot_r, warm_r, sp_r = tier_find_fused(
+            hot, cold, spill, queries, warm_layout_of(cold, warm_layout))
     f_hot, v_hot, c_hot = hot_r
     f_warm, v_warm = warm_r
     f_sp, v_sp = sp_r
@@ -224,15 +258,18 @@ def hot_update(hot, meta, clock, keys, vals, mask, policy, max_evict,
 
 @_entry("update")
 def tier_apply(hot, meta, clock, cold, spill, keys, vals, mask, policy,
-               max_evict, mode: str | None = None):
-    """FUSED tier-stack APPLY prologue as ONE dispatch: membership probes,
-    the hot insert plan and victim selection. Returns (hot', meta',
-    in_warm, in_spill, ins, exists, ev_key, ev_val, ev_mask)."""
+               max_evict, mode: str | None = None,
+               warm_layout: str = "level"):
+    """FUSED tier-stack APPLY prologue as ONE dispatch: membership probes
+    (the warm walk in `warm_layout`), the hot insert plan and victim
+    selection. Returns (hot', meta', in_warm, in_spill, ins, exists,
+    ev_key, ev_val, ev_mask)."""
     if _resolve(mode) == "torch":
         from repro_torch.kernels.tier_apply.ref import tier_apply_ref
         return tier_apply_ref(hot, meta, clock, cold, spill, keys, vals,
-                              mask, policy, max_evict)
+                              mask, policy, max_evict, warm_layout)
     _gpu_tensors("tier_apply", keys)
     from repro_torch.kernels.tier_apply.ops import tier_apply_fused
     return tier_apply_fused(hot, meta, clock, cold, spill, keys, vals, mask,
-                            policy, max_evict)
+                            policy, max_evict,
+                            warm_layout_of(cold, warm_layout))

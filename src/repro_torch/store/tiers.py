@@ -18,7 +18,10 @@ slice's sizes.
 Probe execution (`fused`, default True): one `exec.tier_apply` dispatch
 for the insert phase and one `exec.tier_find` dispatch for the FIND
 phase, 2 per apply whatever the depth; `fused=False` keeps the
-dispatch-per-tier chain with bit-identical results and residency.
+dispatch-per-tier chain with bit-identical results and residency. The
+warm walk (`warm_layout`) is the level-major fan-out-4 walk or the
+block-major B-skiplist walk (`tiered3/b128`), another execution knob with
+the same results and residency.
 
 Policies (`none` | `lru` | `size`), eviction capped at the lower tiers'
 free headroom, promotion of warm/spill-served FIND lanes, `flush`, and the
@@ -147,21 +150,25 @@ class TierState(NamedTuple):
 
 class TieredBackend:
     """The tier stack behind `hash+skiplist` (depth 2) and
-    `tiered3[/lru|/size]` (depth 3)."""
+    `tiered3[/lru|/size|/b128]` (depth 3)."""
 
     ordered = True
 
     def __init__(self, depth: int = 2, policy: str = "none",
-                 fused: bool = True):
+                 fused: bool = True, warm_layout: str = "level"):
         if depth not in (2, 3):
             raise ValueError("depth must be 2 (hash->skiplist) or 3 (+spill)")
         if policy not in POLICIES:
             raise ValueError(f"policy must be one of {POLICIES}")
+        if warm_layout not in ("level", "block"):
+            raise ValueError("warm_layout must be 'level' or 'block'")
         self.depth = depth
         self.policy = policy
         self.fused = fused
+        self.warm_layout = warm_layout
         base = "hash+skiplist" if depth == 2 else "tiered3"
-        self.name = base if policy == "none" else f"{base}/{policy}"
+        name = base if policy == "none" else f"{base}/{policy}"
+        self.name = name + ("/b128" if warm_layout == "block" else "")
 
     def init(self, capacity: int, hot_bucket: int = 8, device="cuda",
              **kw) -> TierState:
@@ -206,6 +213,12 @@ class TieredBackend:
             obs.record("spill_runs_searched",
                        lanes * (spill.run_start & live).sum())
 
+    def _warm_find(self, cold, queries):
+        """The unfused warm probe in the stack's layout."""
+        if self.warm_layout == "block":
+            return exec_.bskiplist_find(cold, queries)
+        return exec_.skiplist_find(cold, queries)
+
     def _headroom(self, cold, spill):
         """Free lower-tier slots = the eviction budget."""
         free = cold.term_keys.shape[0] - cold.n_term
@@ -237,10 +250,11 @@ class TieredBackend:
                 (hot, meta, in_cold, in_spill, ins_hot, ex_hot,
                  ev_k, ev_v, ev_m) = exec_.tier_apply(
                     hot, meta, clock, cold, spill, keys, vals, ins_m,
-                    self.policy, self._headroom(cold, spill))
+                    self.policy, self._headroom(cold, spill),
+                    warm_layout=self.warm_layout)
                 try_hot = ins_m & ~in_cold & ~in_spill
             else:
-                in_cold = exec_.skiplist_find(cold, ins_k)[0]
+                in_cold = self._warm_find(cold, ins_k)[0]
                 in_spill = (exec_.spill_find(spill, ins_k)[0]
                             if spill is not None else zb)
                 try_hot = ins_m & ~in_cold & ~in_spill
@@ -275,10 +289,11 @@ class TieredBackend:
             self._record_probe_cost(cold, spill, qk)
             if self.fused:
                 ((f_hot, v_hot, c_hot), (f_cold, v_cold),
-                 (f_spill, v_spill)) = exec_.tier_find(hot, cold, spill, qk)
+                 (f_spill, v_spill)) = exec_.tier_find(
+                    hot, cold, spill, qk, warm_layout=self.warm_layout)
             else:
                 f_hot, v_hot, c_hot = exec_.hash_find_cols(hot, qk)
-                f_cold, v_cold, _ = exec_.skiplist_find(cold, qk)
+                f_cold, v_cold, _ = self._warm_find(cold, qk)
                 if spill is not None:
                     f_spill, v_spill = exec_.spill_find(spill, qk)
                 else:
@@ -420,10 +435,12 @@ def unfused_twin(name: str) -> TieredBackend:
     be = get_backend(name)
     if not isinstance(be, TieredBackend):
         raise ValueError(f"{name!r} is not a tier stack")
-    return TieredBackend(depth=be.depth, policy=be.policy, fused=False)
+    return TieredBackend(depth=be.depth, policy=be.policy, fused=False,
+                         warm_layout=be.warm_layout)
 
 
 HASH_SKIPLIST = register(TieredBackend())
 TIERED3 = register(TieredBackend(depth=3))
 TIERED3_LRU = register(TieredBackend(depth=3, policy="lru"))
 TIERED3_SIZE = register(TieredBackend(depth=3, policy="size"))
+TIERED3_B128 = register(TieredBackend(depth=3, warm_layout="block"))

@@ -200,7 +200,8 @@ def test_tier_find_ref_matches_pallas(name):
     assert_same(ref, got, "tiles")
     assert_same(J_TF_FUSED(js.hot, js.cold, js.spill, jnp.asarray(q),
                            tile=len(q), interpret=True),
-                tier_find_fused(ts.hot, ts.cold, ts.spill, tq), "ops")
+                tier_find_fused(ts.hot, ts.cold, ts.spill, tq,
+                                skiplist_layout(ts.cold)), "ops")
     assert_same(J_TF_REF(js.hot, js.cold, js.spill, jnp.asarray(q)),
                 t_tf_ref.tier_find_ref(ts.hot, ts.cold, ts.spill, tq), "ref")
     if js.spill is not None:
@@ -268,7 +269,8 @@ def test_tier_apply_ref_matches_pallas(name):
     args_t = (ts.hot, ts.hot_meta, ts.clock, ts.cold, ts.spill, tk, tv, tm)
     assert_same(J_TA_FUSED(*args_j, policy=policy, max_evict=max_evict,
                            interpret=True),
-                tier_apply_fused(*args_t, policy, max_evict), "ops")
+                tier_apply_fused(*args_t, policy, max_evict,
+                                 skiplist_layout(ts.cold)), "ops")
     assert_same(J_TA_REF(*args_j, policy=policy, max_evict=max_evict),
                 t_ta_ref.tier_apply_ref(*args_t, policy, max_evict), "ref")
     if policy != "none":
@@ -285,6 +287,7 @@ def test_tier_apply_empty_batch():
     js, ts, _ = _loaded("tiered3")
     z = torch.zeros(0, dtype=torch.int64)
     out = tier_apply_fused(ts.hot, ts.hot_meta, ts.clock, ts.cold, ts.spill,
-                           z, z, torch.zeros(0, dtype=torch.bool), "lru", 8)
+                           z, z, torch.zeros(0, dtype=torch.bool), "lru", 8,
+                           skiplist_layout(ts.cold))
     assert all(a.shape == (0,) for a in out[2:])
     assert out[0] is ts.hot and out[1] is ts.hot_meta

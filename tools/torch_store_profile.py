@@ -4,17 +4,20 @@ main path's own stream.
 
     python3 tools/torch_store_profile.py
 
-Needs a CUDA card. Builds `chip_smoke.py`'s stream at its default seed
-(a preload of 0.75 * 2^24 fresh keys in plans of 65,536 lanes, then 16
-Workload 1 and 16 Workload 2 plans of 4,096 lanes) and runs it in exec mode `gpu` through
-`StoreEngine` for chip_smoke's four backends at its capacities. Three
-windows are profiled with `torch.profiler` (CPU + CUDA activities): the
-last 4 preload plans, the 16 Workload 1 plans and the 16 Workload 2
-plans; the preload plans before them run unprofiled. Prints per backend
+Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
+and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
+preload of 0.75 * 2^24 fresh keys in plans of 65,536 lanes, then 16
+Workload 1 and 16 Workload 2 plans of 4,096 lanes) for det_skiplist,
+hash+skiplist, tiered3/lru, tiered3 and tiered3/b128 (the same stack in
+its two warm layouts) and fixed_hash at chip_smoke's capacities, and the pq stream (`make_pq_stream`: a preload of 2^23
+priority keys, then 16 P1 and 16 P2 plans) for pq. Three windows per
+cell are profiled with `torch.profiler` (CPU + CUDA activities): the last
+4 preload plans and each workload's plans; the preload plans before them
+run unprofiled. Prints per backend
 and window: host ms per plan (synchronized), device-busy ms per plan
 (sum of device self time), the device's idle share of the wall time, host
-syncs per plan, the port's own kernels' ms per plan, dispatches per plan
-and the top device ops; the full tables go to
+syncs per plan, the port's own kernels' ms per plan (and each one's),
+dispatches per plan and the top device ops; the full tables go to
 `bench_out/torch_profile_<backend>_<window>.txt`.
 """
 from __future__ import annotations
@@ -28,7 +31,8 @@ OUT = ROOT / "bench_out"
 PROFILED_PRELOAD = 4
 PORT_KERNELS = ("skiplist_search_kernel", "hash_probe_kernel",
                 "tier_find_kernel", "tier_apply_member_kernel",
-                "tier_apply_scan_kernel")
+                "tier_apply_scan_kernel", "bskiplist_walk_kernel",
+                "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel")
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "aten::_local_scalar_dense")
 
@@ -70,6 +74,10 @@ def profile_window(torch, exec_, engines, st, plans, label: str):
           f"idle share {1 - busy_ms / wall_ms:.3f}, {syncs:.1f} syncs/plan, "
           f"port kernels {port_ms:.4f} ms/plan, dispatches/plan "
           f"{meter.n / n:.1f}", flush=True)
+    for e in kernels:
+        if any(k in e.key for k in PORT_KERNELS):
+            print(f"    port   {self_device_us(e) / n / 1e3:9.4f} ms/plan "
+                  f"x{e.count / n:<5.1f} {e.key[:70]}", flush=True)
     for e in sorted(kernels, key=self_device_us, reverse=True)[:6]:
         print(f"    device {self_device_us(e) / n / 1e3:9.4f} ms/plan "
               f"x{e.count // n:<5d} {e.key[:70]}", flush=True)
@@ -93,24 +101,27 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
-    from repro_torch.core.bits import from_u64
     from repro_torch.store import exec as exec_
     from repro_torch.store.engine import StoreEngine
 
     OUT.mkdir(parents=True, exist_ok=True)
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
-    plans = [(tag, torch.from_numpy(ops).to(cs.DEV), from_u64(k, cs.DEV),
-              from_u64(v, cs.DEV)) for tag, ops, k, v in cs.make_stream(0)]
-    n_pre = sum(tag == "preload" for tag, *_ in plans)
-    windows = [("preload", plans[n_pre - PROFILED_PRELOAD:n_pre]),
-               ("wl1", [p for p in plans if p[0] == "wl1"]),
-               ("wl2", [p for p in plans if p[0] == "wl2"])]
     C = 1 << cs.LOG2_CAPACITY
-    for name, cap in (("det_skiplist", C), ("hash+skiplist", C),
-                      ("tiered3/lru", C // 2), ("fixed_hash", C)):
+    kv = cs.to_device(torch, cs.make_stream(0))
+    pq = cs.to_device(torch, cs.make_pq_stream(0)[0])
+    for name, cap, plans in (("det_skiplist", C, kv), ("hash+skiplist", C, kv),
+                             ("tiered3/lru", C // 2, kv),
+                             ("tiered3", C // 2, kv),
+                             ("tiered3/b128", C // 2, kv),
+                             ("fixed_hash", C, kv),
+                             ("pq", 1 << cs.PQ_LOG2_CAPACITY, pq)):
+        n_pre = sum(tag == "preload" for tag, *_ in plans)
+        tags = sorted({tag for tag, *_ in plans} - {"preload"})
+        windows = [("preload", plans[n_pre - PROFILED_PRELOAD:n_pre])] + [
+            (t, [p for p in plans if p[0] == t]) for t in tags]
         engines = {w: StoreEngine(w, name, exec_mode="gpu")
-                   for w in (cs.PRELOAD_LANES, cs.WL_LANES)}
-        st = engines[cs.WL_LANES].init(cap)
+                   for w in {p[1].shape[0] for p in plans}}
+        st = engines[plans[0][1].shape[0]].init(cap)
         for _, ops, keys, vals in plans[:n_pre - PROFILED_PRELOAD]:
             st, _, _, _ = engines[ops.shape[0]].step(st, ops, keys, vals)
         for label, window in windows:
