@@ -2,47 +2,64 @@
 
 `state_from_numpy(backend_name, tree)` builds the port's state from a
 reference state whose leaves are numpy arrays (or anything `np.asarray`
-takes): `DetSkiplist`, `FixedHash`, `TierState` (with its `SpillTier` or
-None), `PQState`. Fields are matched by name, u64 leaves become int64 views of the
-same bits, every other dtype is kept leaf for leaf. `state_to_numpy` is
-the inverse: the same structure with numpy leaves, u64 fields restored to
-uint64, so `tree_leaves` of both sides compare leaf for leaf.
+takes): `DetSkiplist`, `RandSkiplist`, `FixedHash`, `TwoLevelHash` (with
+its `BlockPool` and `FreeRing`), `SplitOrderHash`, `TwoLevelSplitOrder`,
+`TierState` (with its `SpillTier` or None), `PQState`. Fields are matched
+by name; u64 leaves become int64 views of the same bits and uint32 leaves
+(the pool's generations) int32 views; every other dtype is kept leaf for
+leaf; `max_load` is a static int and stays an int. `state_to_numpy` is
+the inverse: the same structure with numpy leaves, u64 and u32 fields
+restored to their unsigned types, so `tree_leaves` of both sides compare
+leaf for leaf.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.blockpool import BlockPool, FreeRing
 from repro_torch.core.det_skiplist import DetSkiplist, LevelPlanes
-from repro_torch.core.hashtable import FixedHash
+from repro_torch.core.hashtable import FixedHash, TwoLevelHash
 from repro_torch.core.layout import resolve_device
+from repro_torch.core.rand_skiplist import RandSkiplist
+from repro_torch.core.splitorder import SplitOrderHash, TwoLevelSplitOrder
 from repro_torch.store.pq import PQState
 from repro_torch.store.tiers import SpillTier, TierState
 
 # fields that hold u64 keys or values, per state type
 _U64_FIELDS = {
     DetSkiplist: {"term_keys", "term_vals", "level_keys"},
+    RandSkiplist: {"term_keys", "term_vals", "level_keys"},
     FixedHash: {"keys", "vals"},
+    TwoLevelHash: {"l1_keys", "l1_vals", "l2_keys", "l2_vals"},
+    BlockPool: set(),
+    FreeRing: set(),
+    SplitOrderHash: {"rk", "keys", "vals"},
+    TwoLevelSplitOrder: {"rk", "keys", "vals"},
     SpillTier: {"keys", "vals"},
     TierState: set(),
     PQState: set(),
 }
+_U32_FIELDS = {BlockPool: {"gen"}}
+_STATIC_INT = {"max_load"}
 _NESTED = {TierState: {"hot": FixedHash, "cold": DetSkiplist,
                        "spill": SpillTier},
-           PQState: {"heap": DetSkiplist}}
+           PQState: {"heap": DetSkiplist},
+           TwoLevelHash: {"pool": BlockPool},
+           BlockPool: {"free": FreeRing}}
 _TIERED = ("hash+skiplist", "tiered3", "tiered3/lru", "tiered3/size",
            "tiered3/b128")
+_FLAT = {"det_skiplist": DetSkiplist, "rand_skiplist": RandSkiplist,
+         "fixed_hash": FixedHash, "twolevel_hash": TwoLevelHash,
+         "splitorder": SplitOrderHash,
+         "twolevel_splitorder": TwoLevelSplitOrder, "pq": PQState}
 
 
 def _state_type(backend_name: str):
-    if backend_name == "det_skiplist":
-        return DetSkiplist
-    if backend_name == "fixed_hash":
-        return FixedHash
+    if backend_name in _FLAT:
+        return _FLAT[backend_name]
     if backend_name in _TIERED:
         return TierState
-    if backend_name == "pq":
-        return PQState
     raise KeyError(f"no state conversion for backend {backend_name!r}")
 
 
@@ -50,12 +67,14 @@ def _leaf_in(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint64:
         a = a.view(np.int64)
+    elif a.dtype == np.uint32:
+        a = a.view(np.int32)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def _leaf_out(t: torch.Tensor, u64: bool) -> np.ndarray:
+def _leaf_out(t: torch.Tensor, unsigned=None) -> np.ndarray:
     a = t.detach().cpu().numpy()
-    return a.view(np.uint64) if u64 else a
+    return a if unsigned is None else a.view(unsigned)
 
 
 def _build(cls, tree, device):
@@ -65,7 +84,9 @@ def _build(cls, tree, device):
         sub = _NESTED.get(cls, {}).get(f)
         if sub is not None:
             fields[f] = None if v is None else _build(sub, v, device)
-        elif isinstance(v, (tuple, list)):     # DetSkiplist index levels
+        elif f in _STATIC_INT:
+            fields[f] = int(np.asarray(v))
+        elif isinstance(v, (tuple, list)):     # skiplist index levels
             fields[f] = LevelPlanes.stack(_leaf_in(x, device) for x in v)
         else:
             fields[f] = _leaf_in(v, device)
@@ -74,16 +95,19 @@ def _build(cls, tree, device):
 
 def _unbuild(state):
     cls = type(state)
-    u64 = _U64_FIELDS[cls]
+    unsigned = {f: np.uint64 for f in _U64_FIELDS[cls]}
+    unsigned.update({f: np.uint32 for f in _U32_FIELDS.get(cls, ())})
     fields = {}
     for f in cls._fields:
         v = getattr(state, f)
         if f in _NESTED.get(cls, {}):
             fields[f] = None if v is None else _unbuild(v)
+        elif f in _STATIC_INT:
+            fields[f] = v
         elif isinstance(v, tuple):
-            fields[f] = tuple(_leaf_out(x, f in u64) for x in v)
+            fields[f] = tuple(_leaf_out(x, unsigned.get(f)) for x in v)
         else:
-            fields[f] = _leaf_out(v, f in u64)
+            fields[f] = _leaf_out(v, unsigned.get(f))
     return cls(**fields)
 
 

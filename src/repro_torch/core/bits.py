@@ -57,8 +57,10 @@ def u64_le(a, b) -> torch.Tensor:
 
 
 def shr(x: torch.Tensor, s: int) -> torch.Tensor:
-    """Logical right shift by a static 0 < s < 64 (int64 `>>` is
+    """Logical right shift by a static 0 <= s < 64 (int64 `>>` is
     arithmetic, so the sign-extended high bits are masked off)."""
+    if s == 0:
+        return x
     return (x >> s) & ((1 << (64 - s)) - 1)
 
 
@@ -72,6 +74,33 @@ def splitmix64(x: torch.Tensor) -> torch.Tensor:
 
 def hash64(x: torch.Tensor) -> torch.Tensor:
     return splitmix64(x)
+
+
+def bitrev64(x: torch.Tensor) -> torch.Tensor:
+    """Reverse the 64 bits (split-ordering sorts keys by reversed hash):
+    the reference's log-step swap network, with every right shift
+    logical (`shr`): `(x & 0xAAAA...) >> 1` on int64 would smear the
+    sign bit."""
+    for s, m in ((1, 0x5555555555555555), (2, 0x3333333333333333),
+                 (4, 0x0F0F0F0F0F0F0F0F), (8, 0x00FF00FF00FF00FF),
+                 (16, 0x0000FFFF0000FFFF)):
+        lo, hi = i64(m), i64(m << s)
+        x = ((x & lo) << s) | shr(x & hi, s)
+    return (x << 32) | shr(x, 32)
+
+
+def geometric_height(key: torch.Tensor, max_height: int,
+                     p_shift: int = 2) -> torch.Tensor:
+    """Random-skiplist node height from the key's hash, P(h >= j) =
+    (1/4)^j: the count of consecutive zero 2-bit groups from the LSB of
+    splitmix64(key), capped at `max_height` (int32)."""
+    h = splitmix64(key)
+    height = torch.zeros(key.shape, dtype=torch.int32, device=key.device)
+    alive = torch.ones(key.shape, dtype=torch.bool, device=key.device)
+    for j in range(max_height):
+        alive = alive & ((shr(h, p_shift * j) & ((1 << p_shift) - 1)) == 0)
+        height = height + alive.to(torch.int32)
+    return height
 
 
 def make_priority_key(priority: torch.Tensor,

@@ -1,11 +1,16 @@
-"""MWMR fixed-slot hash table (paper §VII, version 1), PyTorch port of the
-fixed table in `repro.core.hashtable`.
+"""MWMR hash tables (paper §VII), PyTorch port of `repro.core.hashtable`:
+the fixed-slot table (version 1) and the two-level table (version 2).
 
 A bucket is one contiguous `[B]`-wide row of an `[M, B]` key plane. A
 batch linearizes by a stable (slot, key) lane sort; in-batch duplicates
 resolve to the lowest lane and within-slot ranks come from a segmented
 cumsum that hands out distinct empty columns. Keys are int64 bit patterns
-(`core.bits`). The two-level table waits for a later slice.
+(`core.bits`).
+
+Two-level: every L1 slot has an inline bucket; overflow expands the slot
+into an L2 table block allocated from a `core.blockpool` pool (the
+paper's per-slot memory manager), hashed by the NEXT log2(M2) bits of the
+same hash.
 """
 from __future__ import annotations
 
@@ -13,9 +18,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.bits import EMPTY, dup_in_run, ordered
-from repro_torch.core.layout import (first_true, hash_slot, inverse_perm,
-                                     is_pow2, kv_arrays, scatter_drop)
+from repro_torch.core.bits import EMPTY, dup_in_run, hash64, ordered, shr
+from repro_torch.core.blockpool import BlockPool, blockpool_init, pool_alloc
+from repro_torch.core.layout import (block_arrays, first_true, hash_slot,
+                                     inverse_perm, is_pow2, kv_arrays,
+                                     scatter_drop)
 
 
 def _lex_sort_slots_keys(slots: torch.Tensor, keys: torch.Tensor):
@@ -168,3 +175,175 @@ def fixed_delete(h: FixedHash, keys: torch.Tensor,
     flat = torch.where(eff, cell, M * B)
     nk = scatter_drop(h.keys.reshape(-1), flat, EMPTY).reshape(M, B)
     return FixedHash(keys=nk, vals=h.vals, count=h.count - eff.sum()), eff
+
+
+# ---------------------------------------------------------------------------
+# Version 2: two-level (inline L1 bucket + pooled L2 tables)
+# ---------------------------------------------------------------------------
+
+class TwoLevelHash(NamedTuple):
+    l1_keys: torch.Tensor   # [M1, B1] int64 (u64 bits)
+    l1_vals: torch.Tensor   # [M1, B1]
+    l2_block: torch.Tensor  # [M1] int32 block id, -1 = not expanded
+    l2_keys: torch.Tensor   # [P, M2, B2] pooled second-level tables
+    l2_vals: torch.Tensor   # [P, M2, B2]
+    pool: BlockPool         # allocator over the P blocks
+    count: torch.Tensor     # () int64 live entries
+
+    @property
+    def m1(self) -> int:
+        return self.l1_keys.shape[0]
+
+    @property
+    def m2(self) -> int:
+        return self.l2_keys.shape[1]
+
+
+def twolevel_init(m1: int, b1: int, m2: int, b2: int, pool_blocks: int, *,
+                  device) -> TwoLevelHash:
+    if not (is_pow2(m1) and is_pow2(m2)):
+        raise ValueError(f"m1 and m2 must be powers of two, got {m1}, {m2}")
+    l1_keys, l1_vals = kv_arrays((m1, b1), device=device)
+    l2_keys, l2_vals = block_arrays(pool_blocks, (m2, b2), device=device)
+    return TwoLevelHash(
+        l1_keys=l1_keys, l1_vals=l1_vals,
+        l2_block=torch.full((m1,), -1, dtype=torch.int32, device=device),
+        l2_keys=l2_keys, l2_vals=l2_vals,
+        pool=blockpool_init(pool_blocks, device=device),
+        count=torch.tensor(0, dtype=torch.int64, device=device))
+
+
+def _slots12(h: TwoLevelHash, keys: torch.Tensor):
+    """(L1 slot, L2 bucket): the low log2(M1) hash bits, then the next
+    log2(M2) bits (paper §VIII), both int32."""
+    hv = hash64(keys)
+    s1 = (hv & (h.m1 - 1)).to(torch.int32)
+    s2 = (shr(hv, h.m1.bit_length() - 1) & (h.m2 - 1)).to(torch.int32)
+    return s1, s2
+
+
+def _probe2(h: TwoLevelHash, keys: torch.Tensor, s1, s2):
+    """Both levels' probes: (hit1 [K, B1], hit2 [K, B2], blk, safe blk)."""
+    hit1 = h.l1_keys[s1.long()] == keys[:, None]
+    blk = h.l2_block[s1.long()]
+    safe = torch.clamp(blk, min=0)
+    hit2 = ((h.l2_keys[safe.long(), s2.long()] == keys[:, None])
+            & (blk >= 0)[:, None])
+    return hit1, hit2, blk, safe
+
+
+def twolevel_find(h: TwoLevelHash, keys: torch.Tensor):
+    """(found[K], vals[K])."""
+    s1, s2 = _slots12(h, keys)
+    hit1, hit2, _, safe = _probe2(h, keys, s1, s2)
+    f1, f2 = hit1.any(dim=1), hit2.any(dim=1)
+    v1 = h.l1_vals[s1.long(), first_true(hit1).long()]
+    v2 = h.l2_vals[safe.long(), s2.long(), first_true(hit2).long()]
+    found = (f1 | f2) & (keys != EMPTY)
+    return found, torch.where(f1, v1, torch.where(f2, v2, 0))
+
+
+def twolevel_insert(h: TwoLevelHash, keys: torch.Tensor, vals: torch.Tensor,
+                    mask: torch.Tensor | None = None):
+    """L1 inline bucket first; on overflow the slot expands into a pooled
+    L2 table (the first overflowing lane of a slot run allocates it) and
+    the lane is placed there. Returns (h', inserted[K], existed[K])."""
+    K = keys.shape[0]
+    M1, B1 = h.l1_keys.shape
+    P, M2, B2 = h.l2_keys.shape
+    dev = keys.device
+    if mask is None:
+        mask = torch.ones(K, dtype=torch.bool, device=dev)
+    mask = mask & (keys != EMPTY)
+    s1, s2 = _slots12(h, keys)
+    order, ss, sk, sm, dup, run_start, inv = _batch_plan(s1, keys, mask)
+    sv, ss2 = vals[order], s2[order]
+    ssl, ss2l = ss.long(), ss2.long()
+
+    # existence across both levels (pre-batch state)
+    rows1 = h.l1_keys[ssl]
+    blk0 = h.l2_block[ssl]
+    rows2 = h.l2_keys[torch.clamp(blk0, min=0).long(), ss2l]
+    exists = sm & ~dup & ((rows1 == sk[:, None]).any(dim=1)
+                          | ((rows2 == sk[:, None]).any(dim=1) & (blk0 >= 0)))
+    cand = sm & ~dup & ~exists
+
+    # L1 placement by within-slot rank over the remaining empties
+    col1, fit1 = _nth_empty(rows1, _seg_rank(cand, run_start))
+    put1 = cand & fit1
+
+    # overflow lanes go to L2; the first needing lane of a slot run allocates
+    over = cand & ~fit1
+    need_alloc = over & (blk0 < 0)
+    do_alloc = need_alloc & (_seg_rank(need_alloc, run_start) == 0)
+    pool2, ids, _, got = pool_alloc(h.pool, do_alloc)
+    l2_block = scatter_drop(h.l2_block, torch.where(do_alloc & got, ss, M1),
+                            ids)
+
+    blk = l2_block[ssl]                                 # post-allocation view
+    has_l2 = over & (blk >= 0)
+    # lanes of one (s1, s2) pair need distinct columns: rank over the pair
+    pair = ss.to(torch.int64) * M2 + ss2.to(torch.int64)
+    po = torch.argsort(pair, stable=True)
+    ppair = pair[po]
+    prun = torch.searchsorted(ppair, ppair, out_int32=True)
+    rank2 = torch.empty(K, dtype=torch.int32, device=dev)
+    rank2[po] = _seg_rank(has_l2[po], prun)
+    rows2b = h.l2_keys[torch.clamp(blk, min=0).long(), ss2l]
+    col2, fit2 = _nth_empty(rows2b, rank2)
+    put2 = has_l2 & fit2
+
+    flat1 = torch.where(put1, ss * B1 + col1, M1 * B1)
+    nk1 = scatter_drop(h.l1_keys.reshape(-1), flat1, sk).reshape(M1, B1)
+    nv1 = scatter_drop(h.l1_vals.reshape(-1), flat1, sv).reshape(M1, B1)
+    flat2 = torch.where(put2, (blk.to(torch.int64) * M2 + ss2) * B2 + col2,
+                        P * M2 * B2)
+    nk2 = scatter_drop(h.l2_keys.reshape(-1), flat2, sk).reshape(P, M2, B2)
+    nv2 = scatter_drop(h.l2_vals.reshape(-1), flat2, sv).reshape(P, M2, B2)
+
+    ins = put1 | put2
+    h2 = TwoLevelHash(l1_keys=nk1, l1_vals=nv1, l2_block=l2_block,
+                      l2_keys=nk2, l2_vals=nv2, pool=pool2,
+                      count=h.count + ins.sum())
+    inv = inv.long()
+    return h2, ins[inv], (exists | dup)[inv]
+
+
+def twolevel_delete(h: TwoLevelHash, keys: torch.Tensor,
+                    mask: torch.Tensor | None = None):
+    """Delete from either level: EMPTY into the matched cell. In-batch
+    duplicate deletes of one key dedupe by a global cell id (L1 cells,
+    then L2 cells), first lane wins. Expanded L2 tables stay allocated.
+    Returns (h', deleted[K])."""
+    K = keys.shape[0]
+    M1, B1 = h.l1_keys.shape
+    P, M2, B2 = h.l2_keys.shape
+    dev = keys.device
+    if mask is None:
+        mask = torch.ones(K, dtype=torch.bool, device=dev)
+    mask = mask & (keys != EMPTY)
+    s1, s2 = _slots12(h, keys)
+    hit1, hit2, _, safe = _probe2(h, keys, s1, s2)
+    f1 = hit1.any(dim=1) & mask
+    f2 = hit2.any(dim=1) & mask & ~f1
+    col1, col2 = first_true(hit1), first_true(hit2)
+
+    found = f1 | f2
+    cell1 = s1.to(torch.int64) * B1 + col1
+    cell2l = (safe.to(torch.int64) * M2 + s2) * B2 + col2
+    cell = torch.where(f1, cell1, torch.where(f2, M1 * B1 + cell2l,
+                                              M1 * B1 + P * M2 * B2))
+    o = torch.argsort(cell, stable=True)
+    cs = cell[o]
+    fdup = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                      cs[1:] == cs[:-1]]) & found[o]
+    eff = found & ~fdup[inverse_perm(o).long()]
+
+    nk1 = scatter_drop(h.l1_keys.reshape(-1),
+                       torch.where(eff & f1, cell1, M1 * B1),
+                       EMPTY).reshape(M1, B1)
+    nk2 = scatter_drop(h.l2_keys.reshape(-1),
+                       torch.where(eff & f2, cell2l, P * M2 * B2),
+                       EMPTY).reshape(P, M2, B2)
+    return h._replace(l1_keys=nk1, l2_keys=nk2,
+                      count=h.count - eff.sum()), eff

@@ -99,6 +99,14 @@ def kv_arrays(shape, *, device):
             torch.zeros(shape, dtype=torch.int64, device=device))
 
 
+def block_arrays(num_blocks: int, block_shape, *, device):
+    """Pooled `[P, ...]` key/value payload arrays for a `core.blockpool`
+    allocator of `num_blocks` ids (the two-level hash's L2 tables)."""
+    if isinstance(block_shape, int):
+        block_shape = (block_shape,)
+    return kv_arrays((num_blocks,) + tuple(block_shape), device=device)
+
+
 def policy_arrays(shape, *, device) -> torch.Tensor:
     """Per-entry eviction-policy metadata, int32 zeros of the key plane's
     shape (LRU: batch clock of the last touch; size: `val_weight`)."""

@@ -34,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply",
-           "bskiplist_walk", "pq_pop")
+           "bskiplist_walk", "pq_pop", "splitorder_probe")
 WARM_LAYOUTS = ("level", "block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -56,6 +56,7 @@ _SIGNATURES = {
     "bskiplist_walk_launch": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _I, _P],
+    "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -120,3 +120,9 @@ def get_backend(name: str) -> Store:
     except KeyError:
         raise KeyError(f"unknown store backend {name!r}; "
                        f"available: {sorted(_REGISTRY)}") from None
+
+
+def available_backends() -> list[str]:
+    """Sorted registry strings of every registered backend."""
+    _ensure_builtin()
+    return sorted(_REGISTRY)

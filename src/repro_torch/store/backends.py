@@ -1,6 +1,6 @@
-"""Flat `Store` backends of the port: `det_skiplist` and `fixed_hash`
-(counterpart of `repro.store.backends`; the other flat structures wait
-for later slices).
+"""Flat `Store` backends of the port (counterpart of
+`repro.store.backends`): `det_skiplist`, `rand_skiplist`, `fixed_hash`,
+`twolevel_hash`, `splitorder` and `twolevel_splitorder`.
 
 All backends share one linearization: INSERTS apply first
 (insert-if-absent, first lane wins on in-batch duplicates), then DELETES
@@ -13,6 +13,8 @@ import torch
 
 from repro_torch.core import det_skiplist as dsl
 from repro_torch.core import hashtable as ht
+from repro_torch.core import rand_skiplist as rsl
+from repro_torch.core import splitorder as so
 from repro_torch.core.bits import EMPTY, KEY_INF
 from repro_torch.core.layout import pow2_floor, resolve_device
 from repro_torch.store import exec as exec_
@@ -85,9 +87,39 @@ class DetSkiplistBackend:
                              capacity=state.term_keys.shape[0])
 
 
-class FixedHashBackend:
-    name = "fixed_hash"
+class RandSkiplistBackend:
+    name = "rand_skiplist"
+    ordered = True
+
+    def init(self, capacity: int, device="cuda", **kw):
+        return rsl.rand_skiplist_init(capacity, device=resolve_device(device))
+
+    def apply(self, state, plan: OpPlan):
+        return apply_linearized(
+            state, plan, rsl.insert_batch, rsl.delete_batch,
+            lambda s, q: exec_.rand_skiplist_find(s, q)[:2], KEY_INF)
+
+    def scan(self, state, lo, hi, max_out: int):
+        # the same contiguous sorted terminal level as det_skiplist
+        return dsl.range_query(state, lo, hi, max_out)
+
+    def stats(self, state):
+        return uniform_stats(size=state.n_term - state.n_marked,
+                             tombstones=state.n_marked,
+                             capacity=state.term_keys.shape[0])
+
+
+class _Unordered:
     ordered = False
+
+    def scan(self, state, lo, hi, max_out: int):
+        raise NotImplementedError(
+            f"{self.name} is unordered: no range scan (pick an ordered "
+            f"backend or a tier stack)")
+
+
+class FixedHashBackend(_Unordered):
+    name = "fixed_hash"
 
     def init(self, capacity: int, bucket: int = 16, device="cuda", **kw):
         return ht.fixed_init(pow2_floor(max(capacity // bucket, 1)), bucket,
@@ -101,14 +133,75 @@ class FixedHashBackend:
         return apply_linearized(state, plan, ht.fixed_insert, ht.fixed_delete,
                                 find, EMPTY)
 
-    def scan(self, state, lo, hi, max_out: int):
-        raise NotImplementedError(
-            f"{self.name} is unordered: no range scan (pick an ordered "
-            f"backend or a tier stack)")
-
     def stats(self, state):
         return uniform_stats(size=state.count, capacity=state.keys.numel())
 
 
+class TwoLevelHashBackend(_Unordered):
+    name = "twolevel_hash"
+
+    def init(self, capacity: int, b1: int = 8, m2: int = 16, b2: int = 8,
+             pool_blocks: int | None = None, device="cuda", **kw):
+        m1 = pow2_floor(max(capacity // (2 * b1), 1))
+        if pool_blocks is None:
+            # every L1 slot can expand once (paper table V)
+            pool_blocks = max(m1, 8)
+        return ht.twolevel_init(m1, b1, m2, b2, pool_blocks,
+                                device=resolve_device(device))
+
+    def apply(self, state, plan: OpPlan):
+        return apply_linearized(state, plan, ht.twolevel_insert,
+                                ht.twolevel_delete, exec_.twolevel_hash_find,
+                                EMPTY)
+
+    def stats(self, state):
+        return uniform_stats(
+            size=state.count,
+            capacity=state.l1_keys.numel() + state.l2_keys.numel(),
+            l2_tables=(state.l2_block >= 0).sum())
+
+
+class SplitOrderBackend(_Unordered):
+    name = "splitorder"
+
+    def init(self, capacity: int, seed_slots: int = 4, max_load: int = 16,
+             device="cuda", **kw):
+        return so.splitorder_init(capacity, seed_slots, max_load,
+                                  device=resolve_device(device))
+
+    def apply(self, state, plan: OpPlan):
+        return apply_linearized(state, plan, so.splitorder_insert,
+                                so.splitorder_delete, exec_.splitorder_find,
+                                KEY_INF)
+
+    def stats(self, state):
+        return uniform_stats(size=state.n, capacity=state.rk.shape[0],
+                             slots=state.n_slots)
+
+
+class TwoLevelSplitOrderBackend(_Unordered):
+    name = "twolevel_splitorder"
+
+    def init(self, capacity: int, num_tables: int = 8, seed_slots: int = 2,
+             max_load: int = 16, device="cuda", **kw):
+        per_table = max(capacity // num_tables, 16)
+        return so.twolevel_splitorder_init(num_tables, per_table, seed_slots,
+                                           max_load,
+                                           device=resolve_device(device))
+
+    def apply(self, state, plan: OpPlan):
+        return apply_linearized(state, plan, so.twolevel_splitorder_insert,
+                                so.twolevel_splitorder_delete,
+                                exec_.twolevel_splitorder_find, KEY_INF)
+
+    def stats(self, state):
+        return uniform_stats(size=state.n.sum(), capacity=state.rk.numel(),
+                             slots=state.n_slots.sum())
+
+
 DET_SKIPLIST = register(DetSkiplistBackend())
+RAND_SKIPLIST = register(RandSkiplistBackend())
 FIXED_HASH = register(FixedHashBackend())
+TWOLEVEL_HASH = register(TwoLevelHashBackend())
+SPLITORDER = register(SplitOrderBackend())
+TWOLEVEL_SPLITORDER = register(TwoLevelSplitOrderBackend())

@@ -7,6 +7,7 @@ backend logic. Two modes, bit-identical for all integer work:
   torch  the plain PyTorch versions (the references the JAX `jnp` mode
          runs: `core.det_skiplist.find_batch` / `find_batch_blocked` /
          `pop_rank_select`, `core.hashtable.fixed_find_cols`,
+         `core.splitorder.twolevel_splitorder_find`,
          `kernels.tier_find.ref.tier_find_ref`,
          `kernels.tier_apply.ref.tier_apply_ref`) — CPU or CUDA tensors
   gpu    the hand-written CUDA kernels (`kernels/*`), the default; CPU
@@ -14,7 +15,10 @@ backend logic. Two modes, bit-identical for all integer work:
 
 `spill_find` and `hot_update` run their plain versions in both modes, as
 in the reference (they serve only the unfused chain; the fused
-`tier_find` / `tier_apply` are the kernelized forms).
+`tier_find` / `tier_apply` are the kernelized forms), and so do the
+probes of the structures the reference never kernelized:
+`rand_skiplist_find`, `twolevel_hash_find` and `splitorder_find`
+(`twolevel_splitorder_find` launches the `splitorder_probe` kernel).
 
 Every entry counts as ONE dispatch of kind "probe" or "update"; in an
 eager framework the count is per call, i.e. per launch of the step.
@@ -195,6 +199,47 @@ def hash_find(h, queries, mode: str | None = None):
 def hash_find_cols(h, queries, mode: str | None = None):
     """Fixed-slot hash probe with the hit column: (found, vals, col)."""
     return _hash_probe(h, queries, mode)
+
+
+# probes the reference never kernelized: plain in every mode
+@_entry("probe")
+def rand_skiplist_find(s, queries, mode: str | None = None):
+    """Randomized-skiplist FIND (the MAX_GAP-padded walk):
+    (found[Q], vals[Q], term_idx[Q])."""
+    _resolve(mode)
+    from repro_torch.core import rand_skiplist as rsl
+    return rsl.find_batch(s, queries)
+
+
+@_entry("probe")
+def twolevel_hash_find(h, queries, mode: str | None = None):
+    """Two-level hash FIND (pooled L2 indirection): (found[Q], vals[Q])."""
+    _resolve(mode)
+    from repro_torch.core import hashtable as ht
+    return ht.twolevel_find(h, queries)
+
+
+@_entry("probe")
+def splitorder_find(h, queries, mode: str | None = None):
+    """ONE-level split-order FIND over the single global [C] array:
+    (found[Q], vals[Q])."""
+    _resolve(mode)
+    from repro_torch.core import splitorder as so
+    return so.splitorder_find(h, queries)
+
+
+@_entry("probe")
+def twolevel_splitorder_find(h, queries, mode: str | None = None):
+    """Two-level split-order FIND, a per-table searchsorted over the
+    [T, C2] planes: (found[Q], vals[Q]); gpu mode launches the
+    `splitorder_probe` kernel."""
+    if _resolve(mode) == "torch":
+        from repro_torch.core import splitorder as so
+        return so.twolevel_splitorder_find(h, queries)
+    _gpu_tensors("twolevel_splitorder_find", queries)
+    from repro_torch.kernels.splitorder_probe.ops import \
+        twolevel_splitorder_probe
+    return twolevel_splitorder_probe(h, queries)
 
 
 @_entry("probe")

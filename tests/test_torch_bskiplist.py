@@ -427,6 +427,7 @@ def test_launcher_signatures_match_sources():
             assert all(re.fullmatch(r"int \w+", p) or "void*" in p
                        for p in params), (m.group(1), params)
     assert protos == cuda._SIGNATURES
+    assert "splitorder_probe_launch" in protos
     names = {fn.split("_launch")[0] for fn in protos}
     assert set(cuda.KERNELS) <= names | {"tier_apply"}
     assert all((ROOT / "src" / "repro_torch" / "kernels" / "csrc"

@@ -9,12 +9,15 @@ and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
 preload of 0.75 * 2^24 fresh keys in plans of 65,536 lanes, then 16
 Workload 1 and 16 Workload 2 plans of 4,096 lanes) for det_skiplist,
 hash+skiplist, tiered3/lru, tiered3 and tiered3/b128 (the same stack in
-its two warm layouts) and fixed_hash at chip_smoke's capacities, and the pq stream (`make_pq_stream`: a preload of 2^23
-priority keys, then 16 P1 and 16 P2 plans) for pq. Three windows per
-cell are profiled with `torch.profiler` (CPU + CUDA activities): the last
-4 preload plans and each workload's plans; the preload plans before them
-run unprofiled. Prints per backend
-and window: host ms per plan (synchronized), device-busy ms per plan
+its two warm layouts), fixed_hash, rand_skiplist, splitorder and
+twolevel_splitorder (the one-level table's global array beside the
+per-table one that runs the splitorder_probe kernel) at chip_smoke's
+capacities, and the pq
+stream (`make_pq_stream`: a preload of 2^23 priority keys, then 16 P1
+and 16 P2 plans) for pq. Three windows per cell are profiled with
+`torch.profiler` (CPU + CUDA activities): the last 4 preload plans and
+each workload's plans; the preload plans before them run unprofiled.
+Prints per backend and window: host ms per plan (synchronized), device-busy ms per plan
 (sum of device self time), the device's idle share of the wall time, host
 syncs per plan, the port's own kernels' ms per plan (and each one's),
 dispatches per plan and the top device ops; the full tables go to
@@ -32,7 +35,8 @@ PROFILED_PRELOAD = 4
 PORT_KERNELS = ("skiplist_search_kernel", "hash_probe_kernel",
                 "tier_find_kernel", "tier_apply_member_kernel",
                 "tier_apply_scan_kernel", "bskiplist_walk_kernel",
-                "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel")
+                "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel",
+                "splitorder_probe_kernel")
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "aten::_local_scalar_dense")
 
@@ -113,7 +117,9 @@ def main() -> int:
                              ("tiered3/lru", C // 2, kv),
                              ("tiered3", C // 2, kv),
                              ("tiered3/b128", C // 2, kv),
-                             ("fixed_hash", C, kv),
+                             ("fixed_hash", C, kv), ("rand_skiplist", C, kv),
+                             ("splitorder", C, kv),
+                             ("twolevel_splitorder", C, kv),
                              ("pq", 1 << cs.PQ_LOG2_CAPACITY, pq)):
         n_pre = sum(tag == "preload" for tag, *_ in plans)
         tags = sorted({tag for tag, *_ in plans} - {"preload"})
