@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the KV store on one GPU and check it.
+"""Drive the PyTorch/CUDA port (the KV store and the LLM serving engine)
+on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,8 +8,8 @@ Phases (each prints its seconds; any failed check raises, so the exit code
 is non-zero and no result line is printed):
 
 1. Device and build: require CUDA, print the card's name and power limit
-   (`nvidia-smi`), build the seven CUDA kernels from `src/repro_torch/
-   kernels/csrc/` (one `nvcc` per source, in parallel).
+   (`nvidia-smi`), build the eight CUDA kernels from `src/repro_torch/
+   kernels/csrc/` (one `nvcc` per source, in parallel). TF32 is off.
 2. Kernels: each kernel's wrapper on CUDA tensors at the main path's
    shapes, held bit for bit against its plain PyTorch version on the same
    inputs: skiplist_search and bskiplist_walk on the flat 2^24 skiplist;
@@ -19,7 +20,11 @@ is non-zero and no result line is printed):
    a tombstone run at its head, on a plan's pop ranks and on ranks past
    the live total; splitorder_probe on a two-level split-order table of
    8 x 2^21 cells (one table full, one empty, an injected rk collision
-   run). Median time per call from CUDA events, the plain version's
+   run); paged_attention at the served decode shapes (qwen3-1.7b's heads,
+   32 requests, pages of 16, 128 pages a request, lengths 1..2,048, edge
+   rows) in f32 (within 2e-5) and bf16 (within 3e-2, and elementwise
+   within half a bf16 step of |plain| + 2e-5), beside SDPA on gathered
+   K/V. Median time per call from CUDA events, the plain version's
    time, a library call's time where one computes the same function
    (`torch.searchsorted`; grouped by table for splitorder_probe, where it
    gives the position only), the whole `gpu` dispatch's time (kernel plus glue) and the
@@ -54,13 +59,29 @@ is non-zero and no result line is printed):
    just after; every cell must launch its kernels (tiered3/b128 the
    block layout of tier_find and tier_apply and never the level layout;
    the three kernel-less cells none).
-4. A `kernels` JSON line, then the last line
+4. Serving: qwen3-1.7b at full width and depth (seeded f32 parameters,
+   bf16 compute) behind `serving.engine.Engine` (32 slots, 4,096 pages of
+   16 tokens) on `serving.traffic.make_trace` (64 requests, seed 0),
+   driven by `replay` in exec mode gpu. Every request finishes with its
+   `max_new` tokens, the pool ends free, prefix hits > 0, the scheduler
+   pops 64, the metrics keys are `SERVING_SCHEMA`, paged_attention
+   launches == decode steps x 28 (counts set to 0 just before the run);
+   check (b): the first 8 decode steps' logits against the plain
+   attention's on the same state, within 4 bf16 steps of the largest
+   |logit|, beside planted faults of the plain attention (a page skipped
+   and the new token left out must exceed that bound); check (a): f32 compute, 4 trace prompts
+   x 16 tokens, each engine token the contiguous `prefill` +
+   `decode_step`'s argmax unless its top-2 margin is below 1e-3. Prints
+   decode tokens/s, ms per decode step, prefill tokens/s, batch fill and
+   the prefix hit rate.
+5. A `kernels` JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -104,6 +125,8 @@ KERNELS = [
      "src/repro/kernels/pq_pop/kernel.py:63"),
     ("splitorder_probe", "src/repro_torch/kernels/csrc/splitorder_probe.cu",
      "src/repro/kernels/splitorder_probe/kernel.py:86"),
+    ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention/kernel.py:67"),
 ]
 BOTH = ("gpu", "torch")
 # the main path's cells on make_stream: (label, backend, capacity shift,
@@ -129,6 +152,45 @@ MAIN_CELLS = [
      ("splitorder_probe",)),
 ]
 PQ_KERNELS = ("pq_pop", "skiplist_search")
+# the serving phase: qwen3-1.7b at full width and depth behind `Engine`
+# (32 request slots, 4,096 pool pages of 16 tokens, 128 pages a request),
+# driven by `serving.traffic.make_trace` (64 requests, prompts of 144 to
+# 1,024 tokens over Zipf-shared 128- to 512-token prefixes, bursty
+# arrivals, every 6th request urgent)
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH = 32
+SERVE_NUM_PAGES = 4096
+SERVE_PAGE = 16
+SERVE_PAGES_PER_REQ = 128
+SERVE_TRACE = dict(n_requests=64, page_size=SERVE_PAGE, vocab=151936,
+                   n_prefixes=8, prefix_pages=(8, 16, 32),
+                   suffix_lens=(16, 128, 512), max_new=(32, 64),
+                   inversion_every=6)
+SERVE_MAX_TICKS = 2000
+# kernels the served run must launch: the decode attention, the
+# scheduler's pq pop and the prefix cache's fused tier probes
+SERVE_KERNELS = ("paged_attention", "pq_pop", "tier_find/level",
+                 "tier_apply/level")
+# check (b): the first 8 bf16 decode steps, gpu vs plain attention. The
+# logits come out of a bf16 matmul, so they are bf16 values: the bound is
+# 4 bf16 steps at the step's largest |logit| (2^-5 = 3.1e-2 a step for
+# logits of 4 to 8). The two attentions differ only in the order of their
+# f32 sums; 28 bf16 layers turn that into a few steps at the head (2.6
+# at most on the H100, PERF.md). The same steps also run planted faults
+# of the plain attention (SERVE_B_FAULTS) at the same state, to show
+# what the bound lets through: the two structural ones must exceed it at
+# every step
+SERVE_B_STEPS = 8
+SERVE_B_ULPS = 4
+SERVE_B_FAULTS = ("page skipped", "own token left out", "bf16 attention")
+SERVE_B_MUST_FAIL = ("page skipped", "own token left out")
+# check (a): f32 compute, 4 trace prompts x 16 new tokens vs the
+# contiguous prefill + decode_step; steps with a top-2 margin below 1e-3
+# are counted, not compared
+SERVE_A_PROMPTS = 4
+SERVE_A_NEW = 16
+SERVE_A_MARGIN = 1e-3
+SERVE_A_PAGES = 320
 SIGN = -(1 << 63)           # u64 order = signed order of x ^ SIGN
 INF_ORDERED = (1 << 63) - 1  # KEY_INF in that order
 SECTOR = 32                 # bytes: the smallest HBM transfer
@@ -894,6 +956,7 @@ def kernel_phase(torch, seed: int):
     torch.cuda.empty_cache()
 
     rows["splitorder_probe"] = splitorder_kernel_row(torch, rng)
+    rows["paged_attention"] = paged_attention_row(torch, rng)
 
     for name, r, lv in ([("bskiplist_walk", rows["bskiplist_walk"],
                           rows["skiplist_search"])]
@@ -906,8 +969,131 @@ def kernel_phase(torch, seed: int):
     for name, r in list(rows.items()) + [(f"{k}/block", v)
                                          for k, v in block_rows.items()]:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
-        print_row(name, r, T)
+        print_row(name, r, r.pop("lanes", T))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, row 8: paged attention at the served decode shapes
+# ---------------------------------------------------------------------------
+
+def paged_attention_inputs(torch, rng, dtype):
+    """The served decode batch of one qwen3-1.7b layer: q [B, H, D], pools
+    of the served engine's size, tables [B, P] with seeded lengths 1..P * page and
+    the edge rows: row 0 a -1 page in the middle, row 1 length 1, row 2 a
+    length ending mid-page, row 3 a -1 tail (its last two pages are -1
+    while its length covers them)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    B, H, HKV, D = (SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    page, P, N = SERVE_PAGE, SERVE_PAGES_PER_REQ, SERVE_NUM_PAGES
+    lengths = rng.integers(1, P * page + 1, B).astype(np.int32)
+    lengths[1], lengths[2], lengths[3] = 1, page * 5 + 7, page * 10
+    tables = np.full((B, P), -1, np.int32)
+    ids = rng.permutation(N)
+    c = 0
+    for b in range(B):
+        need = -(-int(lengths[b]) // page)
+        tables[b, :need] = ids[c:c + need]
+        c += need
+    check(c <= N, "paged_attention inputs: the pool holds the batch")
+    tables[0, 1] = -1
+    tables[3, 8:10] = -1
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(DEV).to(dtype)
+    return (normal(B, H, D), normal(N, page, HKV, D), normal(N, page, HKV, D),
+            torch.from_numpy(tables).to(DEV), torch.from_numpy(lengths).to(DEV))
+
+
+def paged_attention_row(torch, rng):
+    """The paged_attention kernel against its plain version in f32 (within
+    2e-5: the same f32 products summed in another order, and the online
+    softmax's rescaling) and bf16 (within 3e-2, tests/test_kernels.py's
+    tolerance, and elementwise within half a bf16 step of |plain| plus the
+    f32 tolerance: the same bf16 inputs summed in f32, the kernel's output
+    rounded to bf16 once, and half a step is at most 2^-8 of the value),
+    timed in bf16 (the served type) beside `scaled_dot_product_attention`
+    with enable_gqa on K/V already gathered into contiguous
+    [B, Hkv, P * page, D] tensors with a length mask (the gather is not
+    timed). The bound: the K/V rows of the tokens below each length on the
+    live pages (id >= 0), q, out, the table entries below each length and
+    the lengths, over the HBM rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_grouped
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    errs = {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        q, kp, vp, tables, lengths = paged_attention_inputs(torch, rng, dtype)
+        out = paged_attention(q, kp, vp, tables, lengths)
+        torch.cuda.synchronize()
+        ref = paged_attention_ref(q, kp, vp, tables, lengths)
+        check(bool(torch.isfinite(out.float()).all()), "paged_attention: "
+              "finite output")
+        err = (out.float() - ref).abs()
+        errs[dtype] = float(err.max())
+        check(errs[dtype] <= tol, f"paged_attention ({dtype}) differs from "
+              f"its plain version by {errs[dtype]} > {tol}")
+        rel = ""
+        if dtype == torch.bfloat16:
+            within = 2.0 ** -8 * (ref.abs() + 2e-5) + 2e-5
+            worst = float((err / within).max())
+            check(worst <= 1.0, f"paged_attention (bf16): an element is "
+                  f"{worst:.3f} times half a bf16 step of |plain| + 2e-5 "
+                  f"from its plain version")
+            rel = (f"; at most {worst:.3f} of half a bf16 step of |plain| "
+                   f"+ 2e-5")
+        print(f"paged_attention {dtype}: max |kernel - plain| "
+              f"{errs[dtype]:.3e} (tolerance {tol}){rel}", flush=True)
+    b, h, d = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    qg = q.reshape(b, hkv, h // hkv, d)
+    # what the function must read: the table entries below each length
+    # (a -1 among them too), and on each live page the tokens below the
+    # length, a token's K and V rows of one KV head being whole sectors
+    j = torch.arange(tables.shape[1], device=DEV)
+    below = j[None, :] * page < lengths[:, None]
+    live = (tables >= 0) & below
+    n_live = int(live.sum())
+    n_tokens = int(((lengths[:, None] - j[None, :] * page).clamp(0, page)
+                    * live).sum())
+    esz = q.element_size()
+    t_bytes = (2 * n_tokens * hkv * d * esz + 2 * q.numel() * esz
+               + int(below.sum()) * 4 + lengths.numel() * 4)
+    # the library yardstick: K/V gathered as [B, Hkv, S, D] (not timed)
+    safe = tables.clamp(min=0).long()
+    s = tables.shape[1] * page
+    kc = kp[safe].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
+    vc = vp[safe].reshape(b, s, hkv, d).transpose(1, 2).contiguous()
+    pos = torch.arange(s, device=DEV)
+    mask = ((pos[None, :] < lengths[:, None])
+            & (tables >= 0).repeat_interleave(page, dim=1))[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask,
+                                              enable_gqa=True)
+    lib = library()
+    check(float((lib[:, :, 0].float() - ref).abs().max()) <= 3e-2,
+          "scaled_dot_product_attention agrees with the plain version")
+    r = dict(max_abs_err=max(errs.values()), lanes=b,
+             ms=median_ms(torch, lambda: paged_attention_grouped(
+                 qg, kp, vp, tables, lengths)),
+             plain_ms=median_ms(torch, lambda: paged_attention_ref(
+                 q, kp, vp, tables, lengths), 5),
+             library_ms=median_ms(torch, library),
+             dispatch_ms=median_ms(torch, lambda: paged_attention(
+                 q, kp, vp, tables, lengths)),
+             bound=(t_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+    print(f"paged_attention: {n_live} live pages of {tables.numel()} table "
+          f"entries, {n_tokens} tokens read, {t_bytes} bytes", flush=True)
+    del q, kp, vp, kc, vc, ref, lib
+    torch.cuda.empty_cache()
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -1270,6 +1456,281 @@ def main_path(torch, plans, oracle, n_live, pq_plans, pq_expect, pq_final):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the LLM serving engine at qwen3-1.7b full width
+# ---------------------------------------------------------------------------
+
+def planted_fault(torch, name):
+    """The plain attention with a planted fault, for check (b)'s control:
+    "page skipped" drops each request's middle live page, "own token left
+    out" attends over one token less (the new token itself), "bf16
+    attention" computes the scores, the softmax and the weighted sum in
+    bf16 instead of f32."""
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    def fault(q, k_pool, v_pool, tables, lengths):
+        if name == "page skipped":
+            mid = ((lengths.long() - 1) // k_pool.shape[1]) // 2
+            tables = tables.clone()
+            tables[torch.arange(tables.shape[0], device=tables.device),
+                   mid] = -1
+        elif name == "own token left out":
+            lengths = lengths - 1
+        else:
+            b, h, d = q.shape
+            _, page, hkv, _ = k_pool.shape
+            p = tables.shape[1]
+            safe = tables.clamp(min=0).long()
+            k = k_pool[safe].reshape(b, p * page, hkv, d)
+            v = v_pool[safe].reshape(b, p * page, hkv, d)
+            pos = torch.arange(p * page, device=q.device)[None, :]
+            valid = ((pos < lengths[:, None])
+                     & (tables >= 0).repeat_interleave(page, dim=1))
+            qg = q.reshape(b, hkv, h // hkv, d).to(torch.bfloat16)
+            sc = torch.einsum("bkgd,bskd->bkgs", qg, k.to(torch.bfloat16))
+            sc = (sc / math.sqrt(d)).masked_fill(~valid[:, None, None, :],
+                                                 float("-inf"))
+            w = torch.softmax(sc, dim=-1)
+            return torch.einsum("bkgs,bskd->bkgd", w,
+                                v.to(torch.bfloat16)).reshape(b, h, d)
+        return paged_attention_ref(q, k_pool, v_pool, tables, lengths)
+    return fault
+
+
+def serve_decode_checked(torch, engine, n_steps, report):
+    """Wrap `engine._decode` so its first `n_steps` decode steps also run
+    the plain attention (exec mode torch) on the same state first: on the
+    active lanes the gpu-mode logits must be within SERVE_B_ULPS bf16 steps
+    (at the step's largest plain |logit|) of the plain ones, with the same
+    argmax wherever the plain top-2 margin exceeds that bound. Each
+    SERVE_B_FAULTS fault of the plain attention runs at the same state
+    too, and its distance from the plain logits is recorded beside the
+    bound. The plain and faulted runs write the same token slots that the
+    gpu run then overwrites, so the state goes on as the gpu run leaves
+    it."""
+    from repro_torch.serving import paged_decode
+    from repro_torch.store import exec as exec_
+    decode = engine._decode
+    plain_attend = paged_decode.paged_attention_ref
+
+    def checked(toks, slots, mask):
+        if report["steps"] >= n_steps:
+            return decode(toks, slots, mask)
+        n = int(mask.sum())
+        with exec_.exec_mode("torch"):
+            plain, _ = decode(toks, slots, mask)
+            p = plain[:n]
+            faulted = {}
+            for name in SERVE_B_FAULTS:
+                paged_decode.paged_attention_ref = planted_fault(torch, name)
+                try:
+                    f, _ = decode(toks, slots, mask)
+                finally:
+                    paged_decode.paged_attention_ref = plain_attend
+                faulted[name] = float((f[:n] - p).abs().max())
+        logits, kv = decode(toks, slots, mask)
+        g = logits[:n]
+        big = float(p[:, :engine.cfg.vocab_size].abs().max())
+        step = 2.0 ** (math.floor(math.log2(big)) - 7)
+        tol = SERVE_B_ULPS * step
+        diff = float((g - p).abs().max())
+        report["diff"].append(diff)
+        report["tol"].append(tol)
+        report["bad"] += int(diff > tol)
+        for name, fd in faulted.items():
+            report["faults"].setdefault(name, []).append(fd / step)
+        report["steps_of_diff"].append(diff / step)
+        top = torch.topk(p, 2, dim=-1).values
+        wide = (top[:, 0] - top[:, 1]) > tol
+        same = torch.argmax(g, -1) == torch.argmax(p, -1)
+        report["argmax_checked"] += int(wide.sum())
+        report["argmax_flips"] += int((wide & ~same).sum())
+        report["steps"] += 1
+        return logits, kv
+    engine._decode = checked
+
+
+def serve_reference_check(torch, cfg, params, trace):
+    """Check (a): f32 compute at full width and depth. The first
+    SERVE_A_PROMPTS trace prompts, SERVE_A_NEW tokens each, through the
+    Engine in exec mode gpu; the engine's own tokens are then fed to the
+    port's contiguous `prefill` + `decode_step`, and each engine token must
+    be the reference's argmax unless the reference's top-2 margin at that
+    step is below SERVE_A_MARGIN (those steps are counted). Returns
+    (steps checked, low-margin steps)."""
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine, Request
+    cfg32 = cfg.replace(compute_dtype="float32")
+    reqs = trace[:SERVE_A_PROMPTS]
+    eng = Engine(cfg32, params, max_reqs=SERVE_A_PROMPTS,
+                 num_pages=SERVE_A_PAGES, page_size=SERVE_PAGE,
+                 max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV)
+    for r in reqs:
+        eng.submit(Request(req_id=r.req_id, prompt=r.prompt,
+                           max_new=SERVE_A_NEW, priority=r.priority))
+    outs = eng.run(max_steps=4 * SERVE_A_NEW)
+    checked, low = 0, 0
+    for r in reqs:
+        out = outs[r.req_id]
+        check(len(out) == SERVE_A_NEW, f"check (a): request {r.req_id} "
+              f"gave {len(out)} tokens")
+        plen = len(r.prompt)
+        toks = torch.from_numpy(r.prompt.astype(np.int64)).to(DEV)[None]
+        logits, caches, _ = M.prefill(params, cfg32, toks,
+                                      cache_len=plen + SERVE_A_NEW)
+        lg = logits[0, -1]
+        for t in range(SERVE_A_NEW):
+            top = torch.topk(lg, 2)
+            margin = float(top.values[0] - top.values[1])
+            if margin < SERVE_A_MARGIN:
+                low += 1
+            else:
+                check(out[t] == int(top.indices[0]), f"check (a): request "
+                      f"{r.req_id} token {t}: engine {out[t]} != reference "
+                      f"{int(top.indices[0])} (margin {margin:.3e})")
+            checked += 1
+            if t + 1 < SERVE_A_NEW:
+                tok = torch.tensor([[out[t]]], device=DEV)
+                pos = torch.tensor([plen + t], device=DEV)
+                lgs, caches = M.decode_step(params, cfg32, tok, pos, caches)
+                lg = lgs[0, 0]
+    check(int(eng.kv.pool.num_free()) == SERVE_A_PAGES,
+          "check (a): pages leaked")
+    del eng, caches
+    torch.cuda.empty_cache()
+    return checked, low
+
+
+def serving_phase(torch, seed: int):
+    """qwen3-1.7b at full width and depth (28 layers), seeded f32
+    parameters, bf16 compute, served by `Engine` (max_reqs 32, 4,096 pages
+    of 16 tokens, 128 pages a request) on the `make_trace` trace of 64
+    requests, driven by `replay`. Launch counts are set to 0 just before
+    the served run and read just after. Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import scheduler as SCH
+    from repro_torch.serving import traffic
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import obs
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    trace = traffic.make_trace(seed, **SERVE_TRACE)
+    engine = Engine(cfg, params, max_reqs=SERVE_BATCH,
+                    num_pages=SERVE_NUM_PAGES, page_size=SERVE_PAGE,
+                    max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV)
+    torch.cuda.synchronize()
+    plens = [len(r.prompt) for r in trace]
+    print(f"serving: {cfg.name} {cfg.n_layers} layers, {n_params} "
+          f"parameters ({cfg.param_dtype}, compute {cfg.compute_dtype}); "
+          f"trace of {len(trace)} requests, prompts {min(plens)}.."
+          f"{max(plens)} tokens, arrivals over ticks 0.."
+          f"{trace[-1].arrival}; set-up {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    b_report = dict(steps=0, diff=[], tol=[], bad=0, argmax_checked=0,
+                    argmax_flips=0, faults={}, steps_of_diff=[])
+    serve_decode_checked(torch, engine, SERVE_B_STEPS, b_report)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with obs.tracing() as tr:
+        outs = traffic.replay(engine, trace, max_steps=SERVE_MAX_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    print(f"serving: replay {wall:.3f} s, {engine.steps} decode steps, "
+          f"launches {json.dumps(launches)}", flush=True)
+
+    # what comes out
+    for r in trace:
+        req = engine.requests[r.req_id]
+        check(req.done and not req.shed and len(outs[r.req_id]) == r.max_new,
+              f"serving: request {r.req_id} gave {len(outs[r.req_id])} of "
+              f"{r.max_new} tokens")
+    kv = engine.kv
+    check(int(kv.pool.num_free()) == SERVE_NUM_PAGES
+          and not bool(kv.refcount.any()) and not bool(kv.pool.in_use.any())
+          and not bool(kv.active.any()), "serving: pages leaked")
+    m = engine.metrics()
+    check(tuple(m) == obs.SERVING_SCHEMA, "serving: metrics keys")
+    check(m["prefix_hits"] > 0, "serving: no prefix hits")
+    check(m["decode_steps"] == engine.steps and m["ring_depth"] == 0,
+          "serving: decode steps and ring depth")
+    pops = SCH.metrics(engine.sched)["pops"]
+    check(pops == len(trace), f"serving: the scheduler popped {pops}")
+    check(launches.get("paged_attention", 0) == engine.steps * cfg.n_layers,
+          f"serving: paged_attention launched "
+          f"{launches.get('paged_attention', 0)} times for "
+          f"{engine.steps} decode steps of {cfg.n_layers} layers")
+    for name in SERVE_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched in "
+              f"the serving path")
+    print(f"serving check (b): {SERVE_B_STEPS} bf16 decode steps, gpu vs "
+          f"plain attention: max |dlogits| per step {b_report['diff']}, "
+          f"bounds {b_report['tol']}; argmax equal on "
+          f"{b_report['argmax_checked'] - b_report['argmax_flips']} of "
+          f"{b_report['argmax_checked']} lanes with a margin above the "
+          f"bound", flush=True)
+    check(b_report["steps"] == SERVE_B_STEPS and b_report["bad"] == 0
+          and b_report["argmax_flips"] == 0, "serving check (b)")
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
+    print(f"serving check (b) in bf16 steps at the largest |logit|: gpu vs "
+          f"plain {fmt(b_report['steps_of_diff'])}, bound {SERVE_B_ULPS}",
+          flush=True)
+    for name in SERVE_B_FAULTS:
+        fs = b_report["faults"][name]
+        print(f"serving check (b) control, plain vs {name}: {fmt(fs)} "
+              f"(min {min(fs):.2f}, max {max(fs):.2f})", flush=True)
+    for name in SERVE_B_MUST_FAIL:
+        check(min(b_report["faults"][name]) > SERVE_B_ULPS, f"serving check "
+              f"(b): the planted fault '{name}' stays within the bound")
+
+    # timing from the engine's spans (decode spans end on the argmax
+    # copy, prefill spans on the first token's: both wait for the card)
+    dec = [s for s in tr.spans if s.name == "decode"][SERVE_B_STEPS:]
+    pre = [s for s in tr.spans if s.name == "prefill"]
+    dec_s = sum(s.dur_ns for s in dec) / 1e9
+    pre_tokens = sum(s.args["plen"] - s.args["shared_pages"] * SERVE_PAGE
+                     for s in pre)
+    pre_s = sum(s.dur_ns for s in pre) / 1e9
+    report = dict(
+        decode_tokens_per_s=sum(s.args["batch"] for s in dec) / dec_s,
+        decode_ms_per_step=1e3 * dec_s / len(dec),
+        prefill_tokens_per_s=pre_tokens / pre_s,
+        batch_fill=m["batch_fill"], prefix_hit_rate=m["prefix_hit_rate"],
+        prefix_hits=m["prefix_hits"], decode_steps=engine.steps,
+        prefill_tokens=pre_tokens, replay_s=wall,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"serving decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{report['decode_ms_per_step']:.3f} ms/step over decode steps "
+          f"{SERVE_B_STEPS + 1}..{engine.steps}", flush=True)
+    print(f"serving prefill: {report['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({pre_tokens} tokens in {len(pre)} prefills)", flush=True)
+    print(f"serving batch fill: {report['batch_fill']:.4f}", flush=True)
+    print(f"serving prefix hit rate: {report['prefix_hit_rate']:.4f} "
+          f"({m['prefix_hits']} of {m['prefix_lookups']} pages)", flush=True)
+    print(f"serving: peak {report['peak_gib']:.2f} GiB allocated", flush=True)
+    del engine, kv
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    checked, low = serve_reference_check(torch, cfg, params, trace)
+    print(f"serving check (a): f32, {checked} engine tokens equal the "
+          f"contiguous reference's argmax; {low} steps had a top-2 margin "
+          f"below {SERVE_A_MARGIN} and were not compared "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1281,6 +1742,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import cuda as rt
+    # full f32 matmuls (the model's f32 check and the bf16-operand
+    # einsums of `models.common` rely on them), and no TF32 convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     done = phase("1 device and build")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1313,6 +1778,12 @@ def main() -> int:
           f"oracles {time.perf_counter() - t0:.3f} s", flush=True)
     launches = main_path(torch, plans, oracle, n_live, pq_plans, pq_expect,
                          pq_final)
+    done()
+
+    done = phase("4 serving")
+    serve_launches, _ = serving_phase(torch, args.seed)
+    for k, v in serve_launches.items():
+        launches[k] = launches.get(k, 0) + v
     done()
 
     out = []

@@ -1,1 +1,27 @@
-"""Configurations of the port (the store fields of `repro.configs`)."""
+"""Configurations of the port (counterpart of `repro.configs`).
+
+get_config(name)   -> the full ModelConfig / StoreConfig
+get_reduced(name)  -> the same family at tiny sizes for CPU tests
+ARCHS              -> the architectures the port runs so far
+"""
+from importlib import import_module
+
+ARCHS = ["qwen3-1.7b"]
+ALL = ARCHS + ["paper-kvstore"]
+
+_MOD = {n: n.replace("-", "_").replace(".", "_") for n in ALL}
+
+
+def _module(name: str):
+    if name not in _MOD:
+        raise KeyError(f"architecture {name!r} is not ported yet; "
+                       f"ported: {ALL}")
+    return import_module(f"repro_torch.configs.{_MOD[name]}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str):
+    return _module(name).reduced()

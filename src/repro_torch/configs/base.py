@@ -1,9 +1,67 @@
-"""The store fields of the reference's `ModelConfig` (`repro.configs.base`):
-the port runs no model yet, so its config carries the kvstore fields only."""
+"""Config schema of the port (counterpart of `repro.configs.base`).
+
+`ModelConfig` carries the fields of the reference's `ModelConfig` that the
+ported slice reads, under the same names and with the same defaults (the
+GQA transformer family the serving engine drives); `StoreConfig` carries
+the kvstore fields. The MLA, MoE, SSM, xLSTM and hybrid fields wait for
+the slices that port those blocks.
+"""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense (the ported family)
+    n_layers: int = 0
+    d_model: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0                # 0 -> d_model // n_heads
+
+    # --- attention ---
+    attn_type: str = "gqa"           # gqa (mla waits)
+    qk_norm: bool = False            # qwen3
+    qkv_bias: bool = False           # qwen1.5
+    rope_theta: float = 1e4
+    sliding_window: int = 0          # 0 = full attention
+
+    # --- block structure (other kinds raise in models.blocks) ---
+    n_experts: int = 0
+    slstm_every: int = 0
+    block_pattern: str = "transformer"
+    n_codebooks: int = 0
+
+    # --- numerics / structure ---
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 256
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    attn_impl: str = "xla"           # xla (xla_flash raises: ROADMAP.md)
+    attn_block_q: int = 512          # q-chunking of the prefill attention
+    kv_cache_dtype: str = "bfloat16"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def padded_vocab(self) -> int:
+        p = self.vocab_pad_to
+        return -(-self.vocab_size // p) * p
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

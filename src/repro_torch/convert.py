@@ -11,6 +11,12 @@ leaf; `max_load` is a static int and stays an int. `state_to_numpy` is
 the inverse: the same structure with numpy leaves, u64 and u32 fields
 restored to their unsigned types, so `tree_leaves` of both sides compare
 leaf for leaf.
+
+The serving slice adds `params_from_jax` (the reference's parameter
+pytree as numpy leaves, block leaves stacked `[n_groups, ...]`, into the
+port's `models.model.LM`) and `paged_kv_from_jax` / `paged_kv_to_numpy`
+(a `serving.kvcache.PagedKV` with its `BlockPool`). bfloat16 leaves
+(numpy's `ml_dtypes` type) travel as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -121,6 +127,70 @@ def state_to_numpy(state):
     """The port's state -> the same structure with numpy leaves (u64
     fields as uint64)."""
     return _unbuild(state)
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy leaf as a tensor; bfloat16 through its bits, u64 and u32 as
+    the int64 / int32 views of the same bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a.view(np.int16), copy=True)).view(
+            torch.bfloat16).to(device)
+    return _leaf_in(a, device)
+
+
+def params_from_jax(tree, cfg, device="cuda"):
+    """The reference's parameters (`jax.tree.map(np.asarray, params)`) as
+    the port's `LM`, one `Block` per layer, on `device`."""
+    from torch import nn
+
+    from repro_torch.models.attention import GQA
+    from repro_torch.models.blocks import Block
+    from repro_torch.models.mlp import MLP
+    from repro_torch.models.model import LM
+    dev = resolve_device(device)
+    if len(tree["blocks"]) != 1:
+        raise NotImplementedError("params_from_jax: one block kind per "
+                                  "period (the dense transformer)")
+    stacked = tree["blocks"][0]
+
+    def group(cls, d, i):
+        return cls(**{k: _tensor(np.asarray(v)[i], dev) for k, v in d.items()})
+
+    blocks = nn.ModuleList(
+        Block(ln1=_tensor(np.asarray(stacked["ln1"])[i], dev),
+              attn=group(GQA, stacked["attn"], i),
+              ln2=_tensor(np.asarray(stacked["ln2"])[i], dev),
+              ffn=group(MLP, stacked["ffn"], i))
+        for i in range(cfg.n_layers))
+    p = dict(blocks=blocks, final_norm=_tensor(tree["final_norm"], dev),
+             embed=_tensor(tree["embed"], dev))
+    if "lm_head" in tree:
+        p["lm_head"] = _tensor(tree["lm_head"], dev)
+    return LM(**p)
+
+
+_PAGED_KV_INTS = ("block_tables", "lengths", "active", "refcount")
+
+
+def paged_kv_from_jax(tree, device="cuda"):
+    """A reference `PagedKV` with numpy leaves -> the port's, on
+    `device`."""
+    from repro_torch.serving.kvcache import PagedKV
+    dev = resolve_device(device)
+    return PagedKV(pool=_build(BlockPool, tree.pool, dev),
+                   k=_tensor(tree.k, dev), v=_tensor(tree.v, dev),
+                   **{f: _tensor(getattr(tree, f), dev)
+                      for f in _PAGED_KV_INTS})
+
+
+def paged_kv_to_numpy(kv):
+    """The port's `PagedKV` -> the same structure with numpy leaves (the
+    pool's generations as uint32, bf16 pools as float32 values)."""
+    def page(t):
+        return t.detach().float().cpu().numpy()
+    return type(kv)(pool=_unbuild(kv.pool), k=page(kv.k), v=page(kv.v),
+                    **{f: _leaf_out(getattr(kv, f)) for f in _PAGED_KV_INTS})
 
 
 def tree_leaves(tree) -> list:

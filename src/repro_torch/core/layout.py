@@ -72,6 +72,22 @@ def scatter_drop(base: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
     return out[:n]
 
 
+def add_drop(base: torch.Tensor, idx: torch.Tensor, src) -> torch.Tensor:
+    """`base` with `src[i]` (or the scalar `src`) added at `base[idx[i]]`,
+    repeated indices accumulating and indices outside [0, len) dropped —
+    the reference's `.at[idx].add(src, mode="drop")` along dim 0. Returns
+    a new tensor (a trailing trash row takes the dropped lanes)."""
+    n = base.shape[0]
+    idx = idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    out = torch.cat([base, base.new_zeros((1,) + tuple(base.shape[1:]))])
+    if not torch.is_tensor(src):
+        src = torch.full((idx.shape[0],) + tuple(base.shape[1:]), src,
+                         dtype=base.dtype, device=base.device)
+    out.index_add_(0, idx, src.to(base.dtype))
+    return out[:n]
+
+
 def inverse_perm(order: torch.Tensor) -> torch.Tensor:
     """int32 inverse of a permutation (`inv[order] = arange`)."""
     k = order.shape[0]
@@ -105,6 +121,14 @@ def block_arrays(num_blocks: int, block_shape, *, device):
     if isinstance(block_shape, int):
         block_shape = (block_shape,)
     return kv_arrays((num_blocks,) + tuple(block_shape), device=device)
+
+
+def metrics_plane(names, *, device) -> dict:
+    """The observability layer's counter allocation: one int64 zero scalar
+    per metric name, a dict that rides inside an observed store state (the
+    schema, which names, is `repro_torch.store.obs.METRICS_SCHEMA`)."""
+    return {n: torch.zeros((), dtype=torch.int64, device=device)
+            for n in names}
 
 
 def policy_arrays(shape, *, device) -> torch.Tensor:

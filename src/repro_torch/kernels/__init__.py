@@ -14,4 +14,5 @@ tier_apply        fused tier-apply prologue (membership + hot insert plan)
 bskiplist_walk    det-skiplist FIND through the block-major B-skiplist view
 pq_pop            priority-queue rank-select over the live prefix + walk
 splitorder_probe  two-level split-order FIND (per-table binary search)
+paged_attention   GQA decode attention over the block pool's KV pages
 """

@@ -34,12 +34,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply",
-           "bskiplist_walk", "pq_pop", "splitorder_probe")
+           "bskiplist_walk", "pq_pop", "splitorder_probe",
+           "paged_attention")
 WARM_LAYOUTS = ("level", "block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every exported launcher (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "skiplist_search_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _I, _P],
     "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,0 +1,76 @@
+"""Decode step reading and writing KV through the paged block pool
+(counterpart of `repro.serving.paged_decode`), for the GQA transformer
+family.
+
+Per layer: project q/k/v for the new token, write its K/V into its page
+(before attending: the token attends to itself), paged attention over the
+pool pages, then the MLP. The exec mode (`store.exec`) picks the
+attention: `gpu` (the default) launches the `paged_attention` CUDA kernel
+and refuses CPU tensors; `torch` runs the plain version, as the
+reference's `use_kernel=False` runs its jnp oracle. The pools are written
+in place, and lanes that must not write (masked padding lanes, which alias
+slot 0, and lanes without a page) are filtered out once per step.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.models.common import apply_rope, rms_norm
+from repro_torch.models.mlp import mlp
+from repro_torch.models.model import _head
+from repro_torch.serving.kvcache import PagedKV, decode_write_lanes
+from repro_torch.store import exec as exec_
+
+
+def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
+                      mode: str | None = None):
+    """tokens: [B, 1] int; slots: [B] request slots (rows of the block
+    tables). Call AFTER grow_for_decode: lengths already count the new
+    token. `mask`: [B] bool; padding lanes must not write pages. Returns
+    (logits [B, V] f32, kv) with kv's pools updated in place."""
+    if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
+        raise NotImplementedError("paged decode: GQA transformer families")
+    b = tokens.shape[0]
+    if mask is None:
+        mask = torch.ones(b, dtype=torch.bool, device=tokens.device)
+    if exec_._resolve(mode) == "gpu":
+        exec_._gpu_tensors("paged_decode_step", tokens, kv.k)
+        attend = paged_attention
+    else:
+        attend = paged_attention_ref
+    ct = cfg.compute_dtype
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    x = params.w("embed", ct)[tokens.long()]                 # [B, 1, D]
+    rows = slots.long()
+    pos = kv.lengths[rows] - 1                               # new token
+    tables = kv.block_tables[rows]
+    lengths = kv.lengths[rows]
+    lane, pid, off = decode_write_lanes(kv, slots, mask)
+
+    for i, bp in enumerate(params.blocks):
+        p = bp.attn
+        hn = rms_norm(x, bp.ln1, cfg.norm_eps)
+        q = (hn @ p.w("wq", ct)).reshape(b, h, dh)
+        kn = (hn @ p.w("wk", ct)).reshape(b, 1, hkv, dh)
+        vn = (hn @ p.w("wv", ct)).reshape(b, 1, hkv, dh)
+        if cfg.qkv_bias:
+            q = q + p.w("bq", ct).reshape(h, dh)
+            kn = kn + p.w("bk", ct).reshape(1, hkv, dh)
+            vn = vn + p.w("bv", ct).reshape(1, hkv, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, p.q_norm, cfg.norm_eps)
+            kn = rms_norm(kn, p.k_norm, cfg.norm_eps)
+        q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+        kn = apply_rope(kn, pos[:, None], cfg.rope_theta)
+        k_pool, v_pool = kv.k[i], kv.v[i]
+        k_pool[pid, off] = kn[lane, 0].to(k_pool.dtype)
+        v_pool[pid, off] = vn[lane, 0].to(v_pool.dtype)
+        o = attend(q, k_pool, v_pool, tables, lengths)
+        x = x + o.reshape(b, 1, h * dh).to(x.dtype) @ p.w("wo", ct)
+        h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
+        x = x + mlp(bp.ffn, h2, ct)
+
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _head(params, cfg, x[:, 0]), kv

@@ -113,7 +113,12 @@ def _ensure_builtin() -> None:
 
 
 def get_backend(name: str) -> Store:
-    """Look up a registered backend by its registry string."""
+    """Look up a registered backend by its registry string. The `obs:`
+    prefix wraps any registered backend in `obs.ObservedStore`, whose
+    state carries the metrics plane."""
+    if name.startswith("obs:"):
+        from repro_torch.store.obs import ObservedStore
+        return ObservedStore(get_backend(name[len("obs:"):]))
     _ensure_builtin()
     try:
         return _REGISTRY[name]

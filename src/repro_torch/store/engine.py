@@ -4,6 +4,8 @@ the one-shard case of `repro.store.engine`).
 With one shard the routing is the identity: a step's lanes execute in
 their original order, idle lanes (op < 0) become masked `KEY_INF` lanes,
 and results come back in place (idle lanes report ok=False, value 0).
+Over an `obs:` backend the engine also records its routing counters (every
+valid lane is routed to the one shard) and `metrics` reads the plane.
 The mesh-sharded engine and `core/routing.py` wait for a later slice.
 """
 from __future__ import annotations
@@ -59,10 +61,19 @@ class StoreEngine:
         with obs.span("step", backend=self.backend.name, lanes=self.lanes,
                       shards=1, seq=seq):
             valid = ops >= 0
+            frame = None
+            if isinstance(self.backend, obs.ObservedStore):
+                # the one shard receives every valid lane: the routing
+                # counters of an observed state, in the engine's own frame
+                with obs.collect() as frame:
+                    routed = valid.sum()
+                    obs.record("routed_ops", routed)
+                    obs.record("routed_bytes", routed * obs.ROUTED_OP_BYTES)
             plan = OpPlan(ops=ops, keys=torch.where(valid, keys, KEY_INF),
                           vals=vals, mask=valid)
             with exec_.exec_mode(self.exec_mode):
                 state, res = self.backend.apply(state, plan)
+            state = obs.absorb_frame(state, frame)
             return (state, torch.where(valid, res.vals, 0), res.ok & valid, 0)
 
     def stats(self, state) -> dict:
@@ -70,6 +81,16 @@ class StoreEngine:
         out = dict(self.backend.stats(state))
         out["seq"] = self.seq
         return out
+
+    def metrics(self, state) -> dict:
+        """The metrics plane over `obs.METRICS_SCHEMA` (the one-shard
+        `sharded_metrics` of the reference); the engine must run an
+        `obs:` backend."""
+        if not isinstance(self.backend, obs.ObservedStore):
+            raise ValueError(f"backend {self.backend.name!r} carries no "
+                             f"metrics plane; construct the engine with an "
+                             f"'obs:'-prefixed backend (e.g. 'obs:pq')")
+        return self.backend.metrics(state)
 
 
 @functools.lru_cache(maxsize=None)

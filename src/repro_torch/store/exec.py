@@ -51,6 +51,11 @@ def set_mode(mode: str) -> None:
     _MODE.set(_check(mode))
 
 
+def get_mode() -> str:
+    """The current mode (the `exec_mode` override, else "gpu")."""
+    return _MODE.get()
+
+
 @contextmanager
 def exec_mode(mode: str | None):
     """Scoped mode override (None keeps the current mode)."""

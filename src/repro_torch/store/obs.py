@@ -1,5 +1,5 @@
-"""Store observability, first part: host trace spans and metrics frames
-(counterpart of `repro.store.obs`).
+"""Store observability (counterpart of `repro.store.obs`): in-state
+metrics and host trace spans.
 
 * `span(name, **args)` records wall-clock spans into a context-local
   `Tracer` installed with `tracing()`; without a tracer it costs one
@@ -9,10 +9,14 @@
   int64 counter into the innermost frame and evaluates a thunk `value` only
   when a frame is active, so un-observed stores pay nothing. The backends
   call `record` at the same points as the reference.
-
-The `ObservedStore` wrapper, the `obs:` registry prefix and the serving /
-resilience schemas wait for a later slice of the port; until then no
-state carries a metrics plane and `absorb_frame` returns states unchanged.
+* `ObservedStore` (the `obs:` registry prefix of `api.get_backend`) wraps
+  any backend: its state is `ObservedState(inner, metrics)`, `apply`
+  records the plan-level counters and folds every frame into the
+  `metrics` plane, and `metrics(state)` reads it over `METRICS_SCHEMA`.
+* The six resilience counters of `METRICS_SCHEMA` never live in a state:
+  they are host tallies (`resilience_zero`) merged into a metrics view by
+  `merge_resilience`. The serving engine's host counters report through
+  the closed `SERVING_SCHEMA` (`uniform_serving_metrics`).
 """
 from __future__ import annotations
 
@@ -24,10 +28,10 @@ from typing import Any, Dict, NamedTuple
 import torch
 
 from repro_torch.core.bits import EMPTY, KEY_INF
-from repro_torch.core.layout import hash_slot
+from repro_torch.core.layout import (hash_slot, metrics_plane,
+                                     resolve_device)
 
-# the store-plane counter names (the reference's METRICS_SCHEMA without the
-# host-tallied resilience counters); `record` accepts these names only
+# the reference's counter names; `record` accepts these names only
 METRICS_SCHEMA = (
     "ops_find", "ops_insert", "ops_delete",
     "find_hits", "find_misses",
@@ -38,7 +42,54 @@ METRICS_SCHEMA = (
     "spill_appends", "tombstones_reclaimed",
     "pops", "pop_empty",
     "routed_ops", "routed_bytes",
+    # host-tallied (never accumulated inside a state; `merge_resilience`)
+    "faults_injected", "recoveries", "replayed_ops",
+    "deadline_expired", "shed", "retries",
 )
+
+RESILIENCE_SCHEMA = ("faults_injected", "recoveries", "replayed_ops",
+                     "deadline_expired", "shed", "retries")
+
+# host-side serving-engine counters (`serving.engine.Engine.metrics()`)
+SERVING_SCHEMA = ("ring_depth", "prefix_hits", "prefix_lookups",
+                  "prefix_hit_rate", "batch_fill", "decode_steps",
+                  "decode_tokens")
+
+# bytes one routed op carries through the engine's queues: key u64 + val
+# u64 + op i32 + origin i32 (the reference's routing lane payload)
+ROUTED_OP_BYTES = 24
+
+
+def resilience_zero() -> Dict[str, int]:
+    """A zeroed host-side resilience tally (plain ints)."""
+    return {k: 0 for k in RESILIENCE_SCHEMA}
+
+
+def merge_resilience(metrics: Dict[str, Any],
+                     tally: Dict[str, int]) -> Dict[str, Any]:
+    """A metrics view with a host-side resilience tally folded in (values
+    added to the store plane's zeros; other keys pass through)."""
+    unknown = set(tally) - set(RESILIENCE_SCHEMA)
+    if unknown:
+        raise ValueError(f"resilience tally keys {sorted(unknown)} not in "
+                         f"obs.RESILIENCE_SCHEMA")
+    return {k: (v + tally[k] if k in tally else v)
+            for k, v in metrics.items()}
+
+
+def metrics_zero(device) -> Dict[str, torch.Tensor]:
+    """A zeroed metrics plane over `METRICS_SCHEMA` on `device`."""
+    return metrics_plane(METRICS_SCHEMA, device=device)
+
+
+def uniform_serving_metrics(**counters) -> Dict[str, Any]:
+    """Pad host-side serving counters to the closed `SERVING_SCHEMA`
+    (unknown keys are an error)."""
+    unknown = set(counters) - set(SERVING_SCHEMA)
+    if unknown:
+        raise ValueError(f"serving metric keys {sorted(unknown)} not in "
+                         f"SERVING_SCHEMA; extend obs.SERVING_SCHEMA")
+    return {k: counters.get(k, 0) for k in SERVING_SCHEMA}
 
 
 class MetricsFrame:
@@ -85,10 +136,85 @@ def record(name: str, value) -> None:
     frames[-1].add(name, value() if callable(value) else value)
 
 
+def merge_metrics(metrics: Dict[str, torch.Tensor],
+                  frame: MetricsFrame) -> Dict[str, torch.Tensor]:
+    """metrics plane + one frame's accumulations (schema-complete)."""
+    return {k: (metrics[k] + frame.acc[k]) if k in frame.acc else metrics[k]
+            for k in METRICS_SCHEMA}
+
+
 def absorb_frame(state, frame) -> Any:
-    """Fold an external frame into an observed state. No state of this
-    slice carries a metrics plane, so states pass through unchanged."""
+    """Fold an external frame (the engine's routing counters) into an
+    observed state; other states pass through unchanged."""
+    if isinstance(state, ObservedState) and frame is not None and frame.acc:
+        return ObservedState(inner=state.inner,
+                             metrics=merge_metrics(state.metrics, frame))
     return state
+
+
+class ObservedState(NamedTuple):
+    """An observed backend's state: the wrapped backend's state plus the
+    metrics plane."""
+    inner: Any
+    metrics: Dict[str, torch.Tensor]
+
+
+class ObservedStore:
+    """`Store` adapter adding the metrics plane to any backend
+    (`get_backend("obs:<name>")`). `apply` opens a collection frame around
+    the inner apply, records the plan-level counters and folds the frame
+    into `state.metrics`; `scan` and `stats` proxy through."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.name = f"obs:{inner.name}"
+        self.ordered = inner.ordered
+
+    def init(self, capacity: int, device="cuda", **kw) -> ObservedState:
+        dev = resolve_device(device)
+        return ObservedState(inner=self.inner.init(capacity, device=dev,
+                                                   **kw),
+                             metrics=metrics_zero(dev))
+
+    def apply(self, state: ObservedState, plan):
+        with collect() as frame:
+            inner2, res = self.inner.apply(state.inner, plan)
+            _record_plan_metrics(plan, res)
+        return (ObservedState(inner=inner2,
+                              metrics=merge_metrics(state.metrics, frame)),
+                res)
+
+    def scan(self, state: ObservedState, lo, hi, max_out: int, **kw):
+        with span("scan", backend=self.inner.name):
+            return self.inner.scan(state.inner, lo, hi, max_out, **kw)
+
+    def stats(self, state: ObservedState):
+        return self.inner.stats(state.inner)
+
+    def metrics(self, state: ObservedState) -> Dict[str, torch.Tensor]:
+        """The accumulated metrics plane (every schema key; untouched
+        counters are zero)."""
+        return dict(state.metrics)
+
+
+def _record_plan_metrics(plan, res) -> None:
+    """The backend-generic counters, derived from the plan and the shared
+    `OpResults` encoding (FIND -> (hit, val); INSERT -> (applied,
+    existed); DELETE -> (removed, 0))."""
+    from repro_torch.store.api import OP_DELETE, OP_FIND, OP_INSERT
+    valid = plan.mask & (plan.ops >= 0)
+    find_m = valid & (plan.ops == OP_FIND)
+    ins_m = valid & (plan.ops == OP_INSERT)
+    del_m = valid & (plan.ops == OP_DELETE)
+    record("ops_find", lambda: find_m.sum())
+    record("ops_insert", lambda: ins_m.sum())
+    record("ops_delete", lambda: del_m.sum())
+    record("find_hits", lambda: (find_m & res.ok).sum())
+    record("find_misses", lambda: (find_m & ~res.ok).sum())
+    existed = res.vals != 0
+    record("inserts_new", lambda: (ins_m & res.ok & ~existed).sum())
+    record("inserts_existing", lambda: (ins_m & res.ok & existed).sum())
+    record("deletes_hit", lambda: (del_m & res.ok).sum())
 
 
 def bucket_collision_count(table, queries: torch.Tensor) -> torch.Tensor:

@@ -422,12 +422,15 @@ def test_launcher_signatures_match_sources():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
             params = [p.strip() for p in m.group(2).split(",")]
-            protos[m.group(1)] = [cuda._I if re.fullmatch(r"int \w+", p)
-                                  else cuda._P for p in params]
-            assert all(re.fullmatch(r"int \w+", p) or "void*" in p
+            protos[m.group(1)] = [
+                cuda._I if re.fullmatch(r"int \w+", p)
+                else cuda._F if re.fullmatch(r"float \w+", p)
+                else cuda._P for p in params]
+            assert all(re.fullmatch(r"(int|float) \w+", p) or "void*" in p
                        for p in params), (m.group(1), params)
     assert protos == cuda._SIGNATURES
     assert "splitorder_probe_launch" in protos
+    assert "paged_attention_launch" in protos
     names = {fn.split("_launch")[0] for fn in protos}
     assert set(cuda.KERNELS) <= names | {"tier_apply"}
     assert all((ROOT / "src" / "repro_torch" / "kernels" / "csrc"

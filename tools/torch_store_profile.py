@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where a plan's time goes in the PyTorch/CUDA port, per backend, on the
-main path's own stream.
+main path's own stream; with --serve, where the serving engine's time goes.
 
-    python3 tools/torch_store_profile.py
+    python3 tools/torch_store_profile.py [--serve]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -22,6 +22,14 @@ Prints per backend and window: host ms per plan (synchronized), device-busy ms p
 syncs per plan, the port's own kernels' ms per plan (and each one's),
 dispatches per plan and the top device ops; the full tables go to
 `bench_out/torch_profile_<backend>_<window>.txt`.
+
+--serve profiles chip_smoke.py's serving cell instead: qwen3-1.7b at full
+width behind `Engine` (bf16 compute, exec mode gpu) on chip_smoke's trace,
+driven tick by tick through `serving.traffic.ticks` (replay's loop); two
+windows of engine steps are profiled, one while requests still arrive
+(admission, prefill and decode) and one of decode only after the last
+admission, with the same columns per engine step (the paged_attention
+kernel among the port's kernels).
 """
 from __future__ import annotations
 
@@ -36,7 +44,9 @@ PORT_KERNELS = ("skiplist_search_kernel", "hash_probe_kernel",
                 "tier_find_kernel", "tier_apply_member_kernel",
                 "tier_apply_scan_kernel", "bskiplist_walk_kernel",
                 "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel",
-                "splitorder_probe_kernel")
+                "splitorder_probe_kernel", "paged_attention_kernel")
+# (label, first tick or None = after the last admission, ticks)
+SERVE_WINDOWS = (("serve arriving", 20, 30), ("serve decode", None, 10))
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "aten::_local_scalar_dense")
 
@@ -56,45 +66,91 @@ def on_device(e) -> bool:
 
 def profile_window(torch, exec_, engines, st, plans, label: str):
     """Run `plans` under the profiler; print and write the breakdown."""
+    def run():
+        nonlocal st
+        for _, ops, keys, vals in plans:
+            st, _, _, _ = engines[ops.shape[0]].step(st, ops, keys, vals)
+    report(torch, exec_, run, len(plans), f"{plans[0][1].shape[0]} lanes",
+           "plan", label)
+    return st
+
+
+def report(torch, exec_, run, n: int, what: str, unit: str, label: str):
+    """Profile `run()` (n units of work); print and write the breakdown."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         with exec_.measure_dispatches() as meter:
-            for _, ops, keys, vals in plans:
-                st, _, _, _ = engines[ops.shape[0]].step(st, ops, keys, vals)
+            run()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / len(plans)
-    n = len(plans)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     avg = prof.key_averages()
     kernels = [e for e in avg if on_device(e)]
     busy_ms = sum(self_device_us(e) for e in kernels) / 1e3 / n
     port_ms = sum(self_device_us(e) for e in kernels
                   if any(k in e.key for k in PORT_KERNELS)) / 1e3 / n
     syncs = sum(e.count for e in avg if e.key in SYNC_EVENTS) / n
-    print(f"{label}: {n} plans of {plans[0][1].shape[0]} lanes, "
-          f"{wall_ms:.3f} ms/plan host, {busy_ms:.3f} ms/plan device busy, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {syncs:.1f} syncs/plan, "
-          f"port kernels {port_ms:.4f} ms/plan, dispatches/plan "
-          f"{meter.n / n:.1f}", flush=True)
+    launches = sum(e.count for e in kernels)
+    print(f"{label}: {n} {unit}s of {what}, "
+          f"{wall_ms:.3f} ms/{unit} host, {busy_ms:.3f} ms/{unit} device "
+          f"busy, idle share {1 - busy_ms / wall_ms:.3f}, {syncs:.1f} "
+          f"syncs/{unit}, {launches / n:.1f} device ops/{unit}, port kernels "
+          f"{port_ms:.4f} ms/{unit}, dispatches/{unit} {meter.n / n:.1f}",
+          flush=True)
     for e in kernels:
         if any(k in e.key for k in PORT_KERNELS):
-            print(f"    port   {self_device_us(e) / n / 1e3:9.4f} ms/plan "
+            print(f"    port   {self_device_us(e) / n / 1e3:9.4f} ms/{unit} "
                   f"x{e.count / n:<5.1f} {e.key[:70]}", flush=True)
     for e in sorted(kernels, key=self_device_us, reverse=True)[:6]:
-        print(f"    device {self_device_us(e) / n / 1e3:9.4f} ms/plan "
+        print(f"    device {self_device_us(e) / n / 1e3:9.4f} ms/{unit} "
               f"x{e.count // n:<5d} {e.key[:70]}", flush=True)
     for e in sorted((e for e in avg if not on_device(e)),
                     key=lambda e: e.self_cpu_time_total, reverse=True)[:4]:
-        print(f"    host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/plan "
+        print(f"    host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/{unit} "
               f"x{e.count // n:<5d} {e.key[:70]}", flush=True)
     name = label.replace("/", "_").replace("+", "_").replace(" ", "_")
     (OUT / f"torch_profile_{name}.txt").write_text("".join(
         f"{self_device_us(e):14.1f} us device {e.self_cpu_time_total:14.1f}"
         f" us host  x{e.count:<7d} {e.key}\n"
         for e in sorted(avg, key=self_device_us, reverse=True)))
-    return st
+
+
+def serve_profile(torch, cs, exec_) -> None:
+    """chip_smoke's serving cell, driven through `traffic.ticks` (replay's
+    tick loop) with two profiled windows of engine steps (SERVE_WINDOWS:
+    ticks [20, 50) while requests arrive, and 10 steps once every request
+    is admitted)."""
+    import itertools
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import traffic
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(cs.SERVE_ARCH)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    trace = traffic.make_trace(0, **cs.SERVE_TRACE)
+    eng = Engine(cfg, params, max_reqs=cs.SERVE_BATCH,
+                 num_pages=cs.SERVE_NUM_PAGES, page_size=cs.SERVE_PAGE,
+                 max_pages_per_req=cs.SERVE_PAGES_PER_REQ, exec_mode="gpu")
+    clock = traffic.ticks(eng, trace, max_steps=cs.SERVE_MAX_TICKS)
+    t = -1                                  # the last tick run
+    for label, lo, n in SERVE_WINDOWS:
+        if lo is None:       # after the last admission
+            while (len(eng.requests) < len(trace)
+                   or any(r.slot < 0 for r in eng.requests.values())):
+                t = next(clock)
+        else:
+            while t + 1 < lo:
+                t = next(clock)
+
+        def run():
+            nonlocal t
+            for t in itertools.islice(clock, n):
+                pass
+        report(torch, exec_, run, n, cs.SERVE_ARCH, "step", label)
+    print(f"serve: {eng.steps} decode steps, metrics {eng.metrics()}",
+          flush=True)
 
 
 def main() -> int:
@@ -110,6 +166,9 @@ def main() -> int:
 
     OUT.mkdir(parents=True, exist_ok=True)
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if "--serve" in sys.argv[1:]:
+        serve_profile(torch, cs, exec_)
+        return 0
     C = 1 << cs.LOG2_CAPACITY
     kv = cs.to_device(torch, cs.make_stream(0))
     pq = cs.to_device(torch, cs.make_pq_stream(0)[0])
