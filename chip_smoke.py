@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the KV store and the LLM serving engine)
-on one GPU and check it.
+"""Drive the PyTorch/CUDA port (the KV store, the LLM serving engine and
+hymba-1.5b's prefill and decode) on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -8,7 +8,7 @@ Phases (each prints its seconds; any failed check raises, so the exit code
 is non-zero and no result line is printed):
 
 1. Device and build: require CUDA, print the card's name and power limit
-   (`nvidia-smi`), build the eight CUDA kernels from `src/repro_torch/
+   (`nvidia-smi`), build the ten CUDA kernels from `src/repro_torch/
    kernels/csrc/` (one `nvcc` per source, in parallel). TF32 is off.
 2. Kernels: each kernel's wrapper on CUDA tensors at the main path's
    shapes, held bit for bit against its plain PyTorch version on the same
@@ -27,12 +27,29 @@ is non-zero and no result line is printed):
    K/V. Median time per call from CUDA events, the plain version's
    time, a library call's time where one computes the same function
    (`torch.searchsorted`; grouped by table for splitorder_probe, where it
-   gives the position only), the whole `gpu` dispatch's time (kernel plus glue) and the
+   gives the position only; SDPA for the two attentions), the whole
+   `gpu` dispatch's time (kernel plus glue) and the
    bound: the distinct 32-byte sectors the kernel's work needs, found by
    replaying each probe on this run's data, plus each per-lane input and
    output once, over the HBM rate (a block walk is replayed as a binary
    search of each sorted 128-key node, and a block-layout row's bound is
-   at most the level layout's on the same state and queries).
+   at most the level layout's on the same state and queries; the two
+   float kernels: flops or exps over the card's peak, or bytes).
+   flash_attention in f32 mode at (2, 256, 8, 64), G = 1/2/4/8 causal
+   and full, within 5e-6 of the oracle's twin; in `xla_flash` mode at
+   ragged tiles after 129 cached keys with a window of 37 (f32 at D 64,
+   bf16 at D 128) against the plain mirror at its tiles, and in bf16
+   `xla_flash` mode at hymba's served prefill (B 8, S 4,096, H 25, Hkv 5,
+   D 64), window 0 and 2,048, against the mirror at the kernel's 64-key
+   tiles and at the reference's 512: at most FLASH_OFF_SHARE of the
+   outputs beyond a per-element bound (`flash_off`), beside planted
+   faults of the mirror (a key too many or too few at the window or
+   causal edge, the last ragged key dropped) that must exceed it; SDPA
+   timed beside. selective_scan at
+   tests/test_kernels.py's shapes within 2e-5 of the step-by-step plain
+   scan, and at hymba's prefill (8, 4,096, 3,200, 16) and decode (8, 1,
+   3,200, 16) shapes from a nonzero h0 within 1e-4 of max |y| and |h| of
+   the chunked plain scan.
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
    lanes) across the 256 chips of its 16x16 mesh folded onto one card,
    i.e. capacity 2^24. A seeded stream — a preload of 0.75 * 2^24 fresh
@@ -74,12 +91,28 @@ is non-zero and no result line is printed):
    `decode_step`'s argmax unless its top-2 margin is below 1e-3. Prints
    decode tokens/s, ms per decode step, prefill tokens/s, batch fill and
    the prefix hit rate.
-5. A `kernels` JSON line, then the last line
+5. hymba: hymba-1.5b at full width and depth (32 layers, seeded f32
+   parameters and a bf16 copy, attn_impl "xla_flash", exec mode gpu):
+   8 prompts of 4,096 tokens prefilled, then 32 greedy decode steps;
+   flash_attention launches == 32 and selective_scan == 32 x 33 (counts
+   set to 0 just before); prints prefill and decode tokens/s, ms per
+   decode step and the peak memory. Check (b): bf16, the prefill's last
+   logits and the first 8 decode steps against exec mode torch on the
+   same state, per lane in bf16 steps (every lane within 16, the median
+   decode lane within 2), beside planted faults of the plain path (the
+   window ignored, the SSM or conv state reset) that must exceed the
+   bounds at every step; check (a): f32, 2 prompts, the caches after
+   prefill against the torch-mode prefill's (a limit per cache, which
+   the torch-mode prefill one token short must exceed) and every gpu
+   token the argmax of a torch-mode teacher-forced `forward` unless its top-2
+   margin is below 1e-3.
+6. A `kernels` JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import statistics
@@ -127,6 +160,10 @@ KERNELS = [
      "src/repro/kernels/splitorder_probe/kernel.py:86"),
     ("paged_attention", "src/repro_torch/kernels/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention/kernel.py:67"),
+    ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:67"),
+    ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+     "src/repro/kernels/selective_scan/kernel.py:55"),
 ]
 BOTH = ("gpu", "torch")
 # the main path's cells on make_stream: (label, backend, capacity shift,
@@ -191,6 +228,44 @@ SERVE_A_PROMPTS = 4
 SERVE_A_NEW = 16
 SERVE_A_MARGIN = 1e-3
 SERVE_A_PAGES = 320
+# phase 5: hymba-1.5b at full width and depth (32 layers, d_model 1,600)
+# with attn_impl "xla_flash": 8 prompts of 4,096 tokens prefilled at once,
+# then 32 greedy decode steps on the contiguous caches (cache_len 4,128);
+# the repo's prefill_32k shape (32 x 32,768) cut to 8 x 4,096 so the plain
+# path and the f32 check fit one run, while the 2,048 window still binds
+# on the 29 windowed layers
+HYMBA_ARCH = "hymba-1.5b"
+HYMBA_BATCH = 8
+HYMBA_PROMPT = 4096
+HYMBA_NEW = 32
+# check (b): bf16, gpu vs torch mode on the same state, the prefill's last
+# logits and the first 8 decode steps' logits, per lane in bf16 steps at
+# the lane's largest plain |logit| (the logits come out of a bf16 matmul).
+# Every lane within HYMBA_B_MAX_ULPS at every step, and at decode steps
+# the median lane within HYMBA_B_MEDIAN_ULPS: decode runs the same
+# arithmetic in both modes but for the scan's f32 summation order, so a
+# lane agrees exactly unless an f32 difference tips a bf16 rounding tie,
+# which then spreads through the bf16 layers of that lane alone (4.5
+# steps at most on the H100, one lane at a time); the prefill's flash
+# tiles (64 keys against the plain path's 512) round p at other points in
+# every lane (5.75-7 steps). Planted faults of the plain path on the same
+# state must exceed the bounds at every step they apply to: the window
+# ignored (prefill and decode), the SSM or the conv state reset to zero
+# (decode). The bounds were set from those readings (PERF.md)
+HYMBA_B_STEPS = 8
+HYMBA_B_MAX_ULPS = 16
+HYMBA_B_MEDIAN_ULPS = 2
+HYMBA_FAULTS = ("window ignored", "ssm state reset", "conv state reset")
+# check (a): f32 compute, 2 prompts, the gpu-mode tokens against the
+# torch-mode teacher-forced forward; steps with a top-2 margin below 1e-3
+# are counted, not compared. The caches after prefill: gpu vs torch within
+# HYMBA_A_CACHE_TOL[name] of the largest |plain| of each cache, about 4x
+# the readings on the H100 (k 5.3e-3, v 5.5e-3: bf16 p rounded at other
+# tiles upstream; conv 1.2e-3, ssm 1.1e-3). A planted fault, the plain
+# prefill one token short (every cache one step early), must exceed each
+HYMBA_A_PROMPTS = 2
+HYMBA_A_MARGIN = 1e-3
+HYMBA_A_CACHE_TOL = {"k": 2e-2, "v": 2e-2, "conv": 5e-3, "ssm": 5e-3}
 SIGN = -(1 << 63)           # u64 order = signed order of x ^ SIGN
 INF_ORDERED = (1 << 63) - 1  # KEY_INF in that order
 SECTOR = 32                 # bytes: the smallest HBM transfer
@@ -198,6 +273,23 @@ SECTOR = 32                 # bytes: the smallest HBM transfer
 # outside the tensor cores (the rate a key compare runs at, at most)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# the same data sheet's dense bf16 tensor-core rate; and the SFU's rate of
+# f32 exps: 16 a clock per SM (CUDA C++ Programming Guide, throughput of
+# 32-bit transcendentals at compute capability 9.0) x 132 SMs x the
+# 1,980 MHz boost clock
+BF16_TENSOR_OPS_PER_S = 989e12
+# flash_attention in xla_flash mode against its plain version (the mirror
+# at the kernel's 64-key tiles or the reference's 512): per output,
+# |kernel - plain| <= 2^-7 * (o_abs + |plain|) + 1e-6, o_abs the mirror's
+# output on |v|. f32 noise that tips a p across a bf16 rounding tie moves
+# the output by one ulp of p, at most 2^-7 p |v| / l (all tipped keys of a
+# row together at most 2^-7 o_abs); two bf16 outputs round apart by at
+# most 2^-7 |o|. At most FLASH_OFF_SHARE of the outputs may exceed it,
+# and planted faults of the mirror on the same inputs (a key too many or
+# too few at the window or causal edge, the last ragged key dropped) must
+# exceed that share (PERF.md)
+FLASH_OFF_SHARE = 1e-6
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
 def check(cond, msg: str) -> None:
@@ -693,7 +785,7 @@ def splitorder_kernel_row(torch, rng):
 
 
 def kernel_phase(torch, seed: int):
-    """Returns the rows of the six kernels (the tier kernels in the level
+    """Returns the rows of the ten kernels (the tier kernels in the level
     layout); the block-layout rows of tier_find and tier_apply are
     printed. The bound of a block walk (bskiplist_walk, the block rows) is
     the smaller of its own and the level walk's on the same state and
@@ -957,6 +1049,8 @@ def kernel_phase(torch, seed: int):
 
     rows["splitorder_probe"] = splitorder_kernel_row(torch, rng)
     rows["paged_attention"] = paged_attention_row(torch, rng)
+    rows["flash_attention"] = flash_attention_row(torch, rng)
+    rows["selective_scan"] = selective_scan_row(torch, rng)
 
     for name, r, lv in ([("bskiplist_walk", rows["bskiplist_walk"],
                           rows["skiplist_search"])]
@@ -1092,6 +1186,280 @@ def paged_attention_row(torch, rng):
     print(f"paged_attention: {n_live} live pages of {tables.numel()} table "
           f"entries, {n_tokens} tokens read, {t_bytes} bytes", flush=True)
     del q, kp, vp, kc, vc, ref, lib
+    torch.cuda.empty_cache()
+    return r
+
+
+# ---------------------------------------------------------------------------
+# phase 2, rows 9-10: flash attention and the selective scan at hymba's
+# served prefill and decode shapes
+# ---------------------------------------------------------------------------
+
+def normal(torch, rng, shape, dtype, scale=1.0):
+    return (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             * np.float32(scale)).to(DEV).to(dtype))
+
+
+def allowed_pairs(sq, sk, q_offset, window):
+    """The (query, key) pairs a causal (windowed) row set attends to, per
+    (batch, head)."""
+    pos = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, sk - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_off(torch, got, plain, oabs):
+    """The share of the outputs beyond FLASH_OFF_SHARE's per-element bound,
+    and the largest |got - plain| in units of that bound."""
+    r = ((got.float() - plain).abs()
+         / (2.0 ** -7 * (oabs + plain.abs()) + 1e-6))
+    return float((r > 1).float().mean()), float(r.max())
+
+
+def flash_attention_row(torch, rng):
+    """Mode f32 (the op's contract) at (2, 256, 8, 64) with G = 1, 2, 4, 8
+    and non-causal, against the oracle's twin `flash_attention_ref`
+    within 5e-6 (tests/test_kernels.py's tolerance: the same f32 products
+    summed in another order). Mode xla_flash at Sq 100 after 129 cached
+    keys (ragged q and kv tiles) with a window of 37, f32 at D 64 and bf16
+    at D 128, against the plain mirror at the kernel's tiles; planted
+    faults there: window 38, the last key dropped. Mode xla_flash at
+    hymba's served prefill (B 8, S 4,096, H 25, Hkv 5, D 64, bf16 in and
+    out), window 0 and 2,048, against the mirror at the kernel's 64-key
+    tiles (p rounded after the same running max) and at the reference's
+    512-key tiles (what exec mode torch runs); planted faults there: one
+    key too many or too few at the window edge (window 2,048) or at the
+    causal edge (window 0). Each comparison: at most FLASH_OFF_SHARE of
+    the outputs beyond `flash_off`'s per-element bound, and each planted
+    fault beyond that share. Timed at window 0 beside
+    `scaled_dot_product_attention(is_causal=True, enable_gqa=True)` on
+    [B, H, S, D] views; the bound: 4 * D flops per allowed pair over the
+    bf16 tensor-core rate, or q, k, v and out once over the HBM rate,
+    whichever is larger."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        TILE, flash_attention_fused)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attend_flash_ref,
+                                                         flash_attention_ref)
+    from repro_torch.models.common import attend_causal
+    f32, bf = torch.float32, torch.bfloat16
+    errs = []
+    for hkv, causal in ((8, True), (4, True), (2, True), (1, True),
+                        (8, False)):
+        q, k, v = (normal(torch, rng, (2, 256, n, 64), f32)
+                   for n in (8, hkv, hkv))
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        errs.append(float((out - flash_attention_ref(
+            q, k, v, causal=causal)).abs().max()))
+        check(errs[-1] <= 5e-6, f"flash_attention (f32, G={8 // hkv}, "
+              f"causal={causal}) differs from its plain version by "
+              f"{errs[-1]}")
+    print(f"flash_attention f32 mode, (2, 256, 8, 64), G = 1/2/4/8 causal "
+          f"and G = 1 full: max |kernel - plain| {errs}", flush=True)
+    # xla_flash mode off the served shape: ragged q and kv tiles, a
+    # q_offset (a suffix after cached past), a window, f32 in and out at
+    # D 64 and bf16 at D 128, against the mirror at the kernel's tiles
+    for dtype, d_ in ((f32, 64), (bf, 128)):
+        q = normal(torch, rng, (2, 100, 10, d_), dtype)
+        k, v = (normal(torch, rng, (2, 229, 2, d_), dtype) for _ in range(2))
+        out = flash_attention_fused(q, k, v, q_offset=129, window=37)
+        torch.cuda.synchronize()
+
+        def mirror(k_=k, v_=v, window=37):
+            return attend_flash_ref(q, k_, v_, window, dtype, TILE,
+                                    129).float()
+        plain, oabs = mirror(), mirror(v_=v.abs())
+        errs.append(float((out.float() - plain).abs().max()))
+        off, worst = flash_off(torch, out, plain, oabs)
+        faults = {"window 38": mirror(window=38),
+                  "last key dropped": mirror(k[:, :-1], v[:, :-1])}
+        faults = {n: flash_off(torch, f, plain, oabs)[0]
+                  for n, f in faults.items()}
+        print(f"flash_attention xla_flash mode, Sq 100 after 129 cached "
+              f"keys, window 37, {dtype} at D {d_}: max |kernel - plain| "
+              f"{errs[-1]:.3e}, {off:.3e} of the outputs beyond the bound "
+              f"(the worst {worst:.3f} of it); planted faults beyond it: "
+              + ", ".join(f"{n} {x:.3e}" for n, x in faults.items()),
+              flush=True)
+        check(off <= FLASH_OFF_SHARE, f"flash_attention (xla_flash, "
+              f"ragged, {dtype}, D {d_}): {off:.3e} of the outputs beyond "
+              f"the bound")
+        check(min(faults.values()) > FLASH_OFF_SHARE, f"flash_attention "
+              f"(ragged, {dtype}): a planted fault stays within the "
+              f"share: {faults}")
+
+    cfg = get_config(HYMBA_ARCH)
+    b, s, h, hkv, d = (HYMBA_BATCH, HYMBA_PROMPT, cfg.n_heads,
+                       cfg.n_kv_heads, cfg.resolved_head_dim)
+    q = normal(torch, rng, (b, s, h, d), bf)
+    k, v = (normal(torch, rng, (b, s, hkv, d), bf) for _ in range(2))
+    res = {}
+    for window in (0, cfg.sliding_window):
+        out = flash_attention_fused(q, k, v, window=window)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out.float()).all()), "flash_attention: "
+              "finite output")
+
+        def mirror(v_=v, window=window, q_offset=0, block=TILE):
+            return attend_flash_ref(q, k, v_, window, bf, block,
+                                    q_offset).float()
+        tile, oabs = mirror(), mirror(v_=v.abs())
+        err_tile = float((out.float() - tile).abs().max())
+        off, worst = flash_off(torch, out, tile, oabs)
+        faults = ({"window +1": mirror(window=window + 1),
+                   "window -1": mirror(window=window - 1)} if window else
+                  {"causal +1": mirror(q_offset=1),
+                   "causal -1": mirror(q_offset=-1)})
+        faults = {n: flash_off(torch, f, tile, oabs)[0]
+                  for n, f in faults.items()}
+        del tile
+        plain = mirror(block=cfg.attn_block_q)
+        err = float((out.float() - plain).abs().max())
+        off_p, worst_p = flash_off(torch, out, plain, oabs)
+        del plain, oabs
+        print(f"flash_attention window {window}: beyond the bound "
+              f"{off:.3e} of the outputs vs the plain version at the "
+              f"kernel's tiles (the worst {worst:.3f} of it, max |diff| "
+              f"{err_tile:.3e}), {off_p:.3e} at 512-key tiles (the worst "
+              f"{worst_p:.3f}); planted faults beyond it: "
+              + ", ".join(f"{n} {x:.3e}" for n, x in faults.items()),
+              flush=True)
+        check(off <= FLASH_OFF_SHARE and off_p <= FLASH_OFF_SHARE,
+              f"flash_attention (window {window}): {off:.3e} / {off_p:.3e} "
+              f"of the outputs beyond the bound at 64- / 512-key tiles")
+        check(min(faults.values()) > FLASH_OFF_SHARE, f"flash_attention "
+              f"(window {window}): a planted fault stays within the share: "
+              f"{faults}")
+        worst = max(worst, worst_p)
+        pairs = b * h * allowed_pairs(s, s, 0, window)
+        res[window] = dict(
+            err=err, worst=worst, pairs=pairs,
+            ms=median_ms(torch, lambda: flash_attention_fused(
+                q, k, v, window=window)),
+            plain_ms=median_ms(torch, lambda: attend_flash_ref(
+                q, k, v, window, bf, cfg.attn_block_q), 3),
+            dispatch_ms=median_ms(torch, lambda: attend_causal(
+                q, k, v, window, "bfloat16", impl="xla_flash")))
+        print(f"flash_attention bf16 xla_flash, B {b} S {s} H {h} Hkv {hkv} "
+              f"D {d}, window {window}: {pairs} allowed pairs; "
+              f"{res[window]['ms']:.6f} ms (plain at 512-key tiles "
+              f"{res[window]['plain_ms']:.6f} ms); max |kernel - plain| "
+              f"{err:.3e} at 512-key tiles, at most {worst:.3f} of the "
+              f"per-element bound", flush=True)
+        del out
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    lib = library().transpose(1, 2).float()
+    plain = attend_flash_ref(q, k, v, 0, bf, cfg.attn_block_q).float()
+    lib_err = float((lib - plain).abs().max())
+    check(lib_err <= 2e-2, f"scaled_dot_product_attention agrees with the "
+          f"plain version ({lib_err})")
+    r0 = res[0]
+    t_ops = 4 * d * r0["pairs"] / BF16_TENSOR_OPS_PER_S
+    t_bytes = 2 * (2 * q.numel() + 2 * k.numel()) / HBM_BYTES_PER_S
+    r = dict(max_abs_err=max(errs + [x["err"] for x in res.values()]),
+             lanes=b * s, ms=r0["ms"], plain_ms=r0["plain_ms"],
+             library_ms=median_ms(torch, library),
+             dispatch_ms=r0["dispatch_ms"],
+             bound=((t_ops * 1e3, "operations") if t_ops >= t_bytes
+                    else (t_bytes * 1e3, "bytes")))
+    w = cfg.sliding_window
+    t_w = max(4 * d * res[w]["pairs"] / BF16_TENSOR_OPS_PER_S, t_bytes)
+    print(f"flash_attention: SDPA {r['library_ms']:.6f} ms (max |SDPA - "
+          f"plain| {lib_err:.3e}); window {w}: {res[w]['ms']:.6f} ms "
+          f"against a bound of {t_w * 1e3:.7f} ms by operations",
+          flush=True)
+    del q, k, v, qt, kt, vt, lib, plain
+    torch.cuda.empty_cache()
+    return r
+
+
+def scan_inputs(torch, rng, b, s, d, n):
+    """tests/test_kernels.py's distributions, plus a nonzero h0."""
+    f32 = torch.float32
+    x = normal(torch, rng, (b, s, d), f32, 0.5)
+    dt = (torch.from_numpy(np.abs(rng.standard_normal((b, s), np.float32))
+                           * np.float32(0.1) + np.float32(0.01)).to(DEV))
+    bm = normal(torch, rng, (b, s, n), f32, 0.5)
+    cm = normal(torch, rng, (b, s, n), f32, 0.5)
+    a = -(normal(torch, rng, (d, n), f32).abs() + 0.1)
+    h0 = normal(torch, rng, (b, d, n), f32)
+    return x, dt, bm, cm, a, h0
+
+
+def selective_scan_row(torch, rng):
+    """The kernel against the plain step-by-step scan at
+    tests/test_kernels.py's three shapes within its 2e-5 (atol and rtol),
+    and against the chunked associative scan that exec mode torch runs
+    at hymba's served prefill (8, 4,096, 3,200, 16) and decode (8, 1,
+    3,200, 16) shapes, from a nonzero h0, within 1e-4 of the largest |y|
+    and |h| (f32 throughout; the two sum in other orders). Timed at the
+    prefill shape; no PyTorch call computes the scan. The bound: the
+    larger of the bytes (x, y, dt, B, C, A, h0, h_last once) over the HBM
+    rate, the exps (one per (b, t, d, n)) over the SFU's rate and the six
+    flops per (b, t, d, n) (dt*A, *h, the B FMA, the C FMA) over the f32
+    rate."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_chunked, selective_scan_ref)
+    errs = []
+    for shape in ((1, 32, 64, 8), (2, 64, 128, 16), (2, 128, 64, 8)):
+        ins = scan_inputs(torch, rng, *shape)
+        got = selective_scan_fused(*ins)
+        torch.cuda.synchronize()
+        for g, want in zip(got, selective_scan_ref(*ins)):
+            worst = float(((g - want).abs() / (2e-5 + 2e-5 * want.abs()))
+                          .max())
+            errs.append(float((g - want).abs().max()))
+            check(worst <= 1.0, f"selective_scan {shape} differs from its "
+                  f"plain version (at {worst:.3f} of 2e-5 + 2e-5 |plain|)")
+    cfg = get_config(HYMBA_ARCH)
+    d, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    out = {}
+    for s in (HYMBA_PROMPT, 1):
+        ins = scan_inputs(torch, rng, HYMBA_BATCH, s, d, n)
+        y, h = selective_scan_fused(*ins)
+        torch.cuda.synchronize()
+        yp, hp = selective_scan_chunked(*ins, chunk=cfg.scan_chunk)
+        ey, eh = (float((a - b_).abs().max()) for a, b_ in ((y, yp), (h, hp)))
+        ry, rh = ey / float(yp.abs().max()), eh / float(hp.abs().max())
+        check(ry <= 1e-4 and rh <= 1e-4, f"selective_scan (S {s}) differs "
+              f"from its plain version: {ry:.3e} of max |y|, {rh:.3e} of "
+              f"max |h|")
+        errs += [ey, eh]
+        print(f"selective_scan B {HYMBA_BATCH} S {s} D {d} N {n} from a "
+              f"nonzero h0: max |kernel - plain| y {ey:.3e} ({ry:.3e} of max "
+              f"|y|), h_last {eh:.3e} ({rh:.3e} of max |h|)", flush=True)
+        out[s] = ins
+    ins = out[HYMBA_PROMPT]
+    x, dt, bm, cm, a, h0 = ins
+    elems = HYMBA_BATCH * HYMBA_PROMPT * d * n
+    t_bytes = 4 * (2 * x.numel() + dt.numel() + bm.numel() + cm.numel()
+                   + a.numel() + 2 * h0.numel()) / HBM_BYTES_PER_S
+    t_ops = max(elems / EXP_PER_S, 6 * elems / OPS_PER_S)
+    dec = out[1]
+    r = dict(max_abs_err=max(errs), lanes=HYMBA_BATCH * d,
+             ms=median_ms(torch, lambda: selective_scan_fused(*ins)),
+             plain_ms=median_ms(torch, lambda: selective_scan_chunked(
+                 *ins, chunk=cfg.scan_chunk), 3),
+             library_ms=None,
+             dispatch_ms=median_ms(torch, lambda: selective_scan(*ins)),
+             bound=((t_ops * 1e3, "operations") if t_ops >= t_bytes
+                    else (t_bytes * 1e3, "bytes")))
+    print(f"selective_scan decode shape: "
+          f"{median_ms(torch, lambda: selective_scan_fused(*dec)):.6f} ms "
+          f"per call; prefill shape: {elems} (b, t, d, n) elements",
+          flush=True)
+    del out, ins, dec, x, dt, bm, cm, a, h0
     torch.cuda.empty_cache()
     return r
 
@@ -1731,6 +2099,265 @@ def serving_phase(torch, seed: int):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 5: hymba-1.5b prefill and decode at full width and depth
+# ---------------------------------------------------------------------------
+
+def lane_steps(torch, got, plain, vocab):
+    """Per lane: max |got - plain| over the real vocabulary in bf16 steps
+    at the lane's largest plain |logit|; and those steps."""
+    p = plain[..., :vocab].float()
+    step = 2.0 ** (torch.floor(torch.log2(p.abs().amax(-1))) - 7)
+    d = (got[..., :vocab].float() - p).abs().amax(-1)
+    return [float(x) for x in d / step], step
+
+
+def hymba_check_b(torch, cfg, params, toks, first, caches, gen, report):
+    """Check (b), bf16: the gpu prefill's last logits (`first`) and the
+    first HYMBA_B_STEPS decode steps from the gpu run's own states
+    (`caches` after prefill, the gpu run's tokens `gen`) against exec mode
+    torch on the same state, per lane in bf16 steps (`lane_steps`), beside
+    the planted faults of the plain path on that state. The plain and
+    faulted decodes return new caches and leave the state as it is.
+    `report[label]` gets {"sound": per-lane steps, fault name: ...}."""
+    from repro_torch.models import model as M
+    from repro_torch.store import exec as exec_
+    vocab = cfg.vocab_size
+    nowin = cfg.replace(sliding_window=0)
+    cache_len = caches[0]["k"].shape[2]
+
+    def record(label, got, plain, faults):
+        steps, step = lane_steps(torch, got, plain, vocab)
+        top = torch.topk(plain[..., :vocab].float(), 2, dim=-1).values
+        wide = (top[:, 0] - top[:, 1]) > HYMBA_B_MAX_ULPS * step
+        same = torch.argmax(got, -1) == torch.argmax(plain, -1)
+        report["argmax_checked"] += int(wide.sum())
+        report["argmax_flips"] += int((wide & ~same).sum())
+        report["steps"][label] = {"sound": steps, **{
+            name: lane_steps(torch, f, plain, vocab)[0]
+            for name, f in faults.items()}}
+
+    with exec_.exec_mode("torch"):
+        plain = M.prefill(params, cfg, toks, cache_len)[0][:, -1]
+        faulted = M.prefill(params, nowin, toks, cache_len)[0][:, -1]
+    record("prefill", first, plain, {"window ignored": faulted})
+    del plain, faulted
+    for t in range(HYMBA_B_STEPS):
+        tok = gen[:, t:t + 1]
+        pos = torch.full((toks.shape[0],), toks.shape[1] + t, device=DEV)
+        c = caches[0]
+        with exec_.exec_mode("torch"):
+            plain = M.decode_step(params, cfg, tok, pos, caches)[0][:, 0]
+            faults = {
+                "window ignored":
+                    M.decode_step(params, nowin, tok, pos, caches)[0][:, 0],
+                "ssm state reset": M.decode_step(
+                    params, cfg, tok, pos,
+                    ({**c, "ssm": torch.zeros_like(c["ssm"])},))[0][:, 0],
+                "conv state reset": M.decode_step(
+                    params, cfg, tok, pos,
+                    ({**c, "conv": torch.zeros_like(c["conv"])},))[0][:, 0]}
+        got, caches = M.decode_step(params, cfg, tok, pos, caches)
+        record(f"decode {t}", got[:, 0], plain, faults)
+        del plain, faults, got
+
+
+def within_b(label, lanes) -> bool:
+    """Check (b)'s bounds on one step's per-lane bf16 steps."""
+    ok = max(lanes) <= HYMBA_B_MAX_ULPS
+    if label != "prefill":
+        ok = ok and statistics.median(lanes) <= HYMBA_B_MEDIAN_ULPS
+    return ok
+
+
+def hymba_check_a(torch, cfg, params, toks):
+    """Check (a), f32 compute on HYMBA_A_PROMPTS prompts: the caches after
+    the gpu-mode prefill against the torch-mode prefill's (each within
+    HYMBA_A_CACHE_TOL of its largest |plain|, and the torch-mode prefill
+    one token short beyond it), then HYMBA_NEW greedy gpu decode steps,
+    each token (and the prefill's) the argmax of a torch-mode
+    teacher-forced `forward` over prompt + generated tokens unless that
+    argmax's top-2 margin is below HYMBA_A_MARGIN. Returns (tokens
+    checked, low-margin steps, cache errors, the fault's)."""
+    from repro_torch.models import model as M
+    from repro_torch.store import exec as exec_
+    cfg32 = cfg.replace(compute_dtype="float32")
+    t2 = toks[:HYMBA_A_PROMPTS]
+    plen = t2.shape[1]
+    cache_len = plen + HYMBA_NEW
+    logits, caches, _ = M.prefill(params, cfg32, t2, cache_len)
+    tok = torch.argmax(logits[:, -1], -1)
+    del logits
+    with exec_.exec_mode("torch"):
+        _, plain, _ = M.prefill(params, cfg32, t2, cache_len)
+        _, early, _ = M.prefill(params, cfg32, t2[:, :-1], cache_len)
+
+    def dist(got, ref):
+        return float((got.float() - ref.float()).abs().max()
+                     / ref.float().abs().max())
+    cache_err, fault_err = {}, {}
+    for name, ref in plain[0].items():
+        got = caches[0][name]
+        check(got.shape == ref.shape and got.dtype == ref.dtype,
+              f"check (a): cache {name} shape/dtype")
+        cache_err[name] = dist(got, ref)
+        fault_err[name] = dist(early[0][name], ref)
+        tol = HYMBA_A_CACHE_TOL[name]
+        check(cache_err[name] <= tol, f"check (a): cache {name} differs by "
+              f"{cache_err[name]:.3e} of its largest |plain| > {tol}")
+        check(fault_err[name] > tol, f"check (a): cache {name} one step "
+              f"early differs by only {fault_err[name]:.3e} <= {tol}")
+    del plain, early
+    gen = [tok]
+    for i in range(HYMBA_NEW):
+        pos = torch.full((t2.shape[0],), plen + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg32, tok[:, None], pos, caches)
+        tok = torch.argmax(lg[:, 0], -1)
+        gen.append(tok)
+    gen = torch.stack(gen, 1)                        # [2, NEW + 1]
+    del caches
+    with exec_.exec_mode("torch"):
+        full, _ = M.forward(params, cfg32,
+                            torch.cat([t2, gen[:, :HYMBA_NEW]], 1))
+    ref = full[:, plen - 1:, :cfg.vocab_size]        # predicts gen[:, 0..]
+    del full
+    top = torch.topk(ref, 2, dim=-1)
+    margin = top.values[..., 0] - top.values[..., 1]
+    wide = margin >= HYMBA_A_MARGIN
+    bad = wide & (gen != top.indices[..., 0])
+    check(not bool(bad.any()), f"check (a): {int(bad.sum())} gpu tokens "
+          f"differ from the teacher-forced argmax")
+    return int(gen.numel()), int((~wide).sum()), cache_err, fault_err
+
+
+def hymba_phase(torch, seed: int):
+    """hymba-1.5b at full width and depth (32 layers), seeded f32
+    parameters with a bf16 compute copy drawn on the card, attn_impl
+    "xla_flash", exec mode gpu: prefill HYMBA_BATCH prompts of
+    HYMBA_PROMPT seeded tokens, then HYMBA_NEW greedy decode steps. Launch
+    counts are set to 0 just before that run and read just after. Then
+    checks (b) and (a). Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    cfg = get_config(HYMBA_ARCH).replace(attn_impl="xla_flash")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    params.load_compute_copy(cfg.compute_dtype)
+    n_params = sum(p.numel() for p in params.parameters())
+    rng = np.random.default_rng(seed + 15)
+    B, P = HYMBA_BATCH, HYMBA_PROMPT
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, P))).to(DEV)
+    cache_len = P + HYMBA_NEW
+    # warm-up: cuBLAS's and the kernels' first calls, outside the timing
+    M.decode_step(params, cfg, toks[:, :1], torch.full((B,), 64, device=DEV),
+                  M.prefill(params, cfg, toks[:, :64], 64 + 1)[1])
+    torch.cuda.synchronize()
+    print(f"hymba: {cfg.name} {cfg.n_layers} layers, {n_params} parameters "
+          f"({cfg.param_dtype} + {cfg.compute_dtype} copy), attn_impl "
+          f"{cfg.attn_impl}; {B} prompts x {P} tokens, {HYMBA_NEW} decode "
+          f"steps; set-up {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches, _ = M.prefill(params, cfg, toks, cache_len)
+    first = logits[:, -1].clone()
+    tok = torch.argmax(first, -1)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    del logits
+    caches0 = caches
+    gen = [tok]
+    t0 = time.perf_counter()
+    for i in range(HYMBA_NEW):
+        pos = torch.full((B,), P + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg, tok[:, None], pos, caches)
+        tok = torch.argmax(lg[:, 0], -1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen = torch.stack(gen, 1)
+    print(f"hymba: prefill {t_pre:.3f} s, {HYMBA_NEW} decode steps "
+          f"{t_dec:.3f} s, launches {json.dumps(launches)}", flush=True)
+    check(bool(torch.isfinite(first[:, :cfg.vocab_size]).all())
+          and bool(torch.isfinite(lg[:, 0, :cfg.vocab_size]).all()),
+          "hymba: finite logits")
+    di = cfg.ssm_expand * cfg.d_model
+    want = {"k": (cfg.n_layers, B, cache_len, cfg.n_kv_heads,
+                  cfg.resolved_head_dim),
+            "conv": (cfg.n_layers, B, cfg.ssm_conv - 1, di),
+            "ssm": (cfg.n_layers, B, di, cfg.ssm_state)}
+    for name, shape in want.items():
+        check(tuple(caches[0][name].shape) == shape, f"hymba: cache {name} "
+              f"shape {tuple(caches[0][name].shape)}")
+    check(int(gen.max()) < cfg.vocab_size, "hymba: tokens in the vocabulary")
+    check(launches.get("flash_attention", 0) == cfg.n_layers,
+          f"hymba: flash_attention launched "
+          f"{launches.get('flash_attention', 0)} times, not one per layer")
+    n_scan = cfg.n_layers * (1 + HYMBA_NEW)
+    check(launches.get("selective_scan", 0) == n_scan,
+          f"hymba: selective_scan launched "
+          f"{launches.get('selective_scan', 0)} times, not {n_scan}")
+    report = dict(prefill_tokens_per_s=B * P / t_pre, prefill_s=t_pre,
+                  decode_tokens_per_s=B * HYMBA_NEW / t_dec,
+                  decode_ms_per_step=1e3 * t_dec / HYMBA_NEW,
+                  peak_gib=peak)
+    print(f"hymba prefill: {report['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({B * P} tokens in {t_pre:.3f} s)", flush=True)
+    print(f"hymba decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{report['decode_ms_per_step']:.3f} ms/step", flush=True)
+    print(f"hymba: peak {peak:.2f} GiB allocated", flush=True)
+    del caches, lg
+
+    t0 = time.perf_counter()
+    b_rep = dict(steps={}, argmax_checked=0, argmax_flips=0)
+    hymba_check_b(torch, cfg, params, toks, first, caches0, gen, b_rep)
+    del caches0
+    print(f"hymba check (b), bf16, per lane in bf16 steps at its largest "
+          f"|logit| (max, median over the {B} lanes); bounds: max "
+          f"{HYMBA_B_MAX_ULPS}, decode median {HYMBA_B_MEDIAN_ULPS} "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    for label, row in b_rep["steps"].items():
+        print(f"hymba check (b) {label}: " + "; ".join(
+            f"{name} {max(v):.2f}, {statistics.median(v):.2f}"
+            for name, v in row.items()), flush=True)
+    print(f"hymba check (b): argmax equal on "
+          f"{b_rep['argmax_checked'] - b_rep['argmax_flips']} of "
+          f"{b_rep['argmax_checked']} lanes with a margin above "
+          f"{HYMBA_B_MAX_ULPS} steps", flush=True)
+    check(all(within_b(label, row["sound"])
+              for label, row in b_rep["steps"].items())
+          and b_rep["argmax_flips"] == 0, "hymba check (b)")
+    for name in HYMBA_FAULTS:
+        caught = [within_b(label, row[name]) is False
+                  for label, row in b_rep["steps"].items() if name in row]
+        check(caught and all(caught), f"hymba check (b): the planted fault "
+              f"'{name}' stays within the bounds at some step")
+    report["check_b"] = b_rep
+
+    t0 = time.perf_counter()
+    n_tok, low, cache_err, fault_err = hymba_check_a(torch, cfg, params, toks)
+
+    def fmt(errs):
+        return json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+    print(f"hymba check (a): f32, {n_tok} gpu tokens equal the torch-mode "
+          f"teacher-forced argmax; {low} steps had a top-2 margin below "
+          f"{HYMBA_A_MARGIN} and were not compared; caches after prefill, "
+          f"max |gpu - plain| / max |plain|: {fmt(cache_err)} (bounds "
+          f"{json.dumps(HYMBA_A_CACHE_TOL)}; the prefill one token short: "
+          f"{fmt(fault_err)}) ({time.perf_counter() - t0:.3f} s)",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1772,19 +2399,26 @@ def main() -> int:
     t0 = time.perf_counter()
     oracle, n_live = dict_oracle(plans)
     pq_plans, pq_expect, pq_final = make_pq_stream(args.seed)
-    print(f"stream: {len(plans)} plans, {sum(len(p[1]) for p in plans)} "
-          f"lanes; pq stream: {len(pq_plans)} plans, "
-          f"{sum(len(p[1]) for p in pq_plans)} lanes, final {pq_final}; "
-          f"oracles {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"stream: {len(plans)} plans, "
+          f"{sum(len(p[1]) for p in plans)} lanes; pq stream: "
+          f"{len(pq_plans)} plans, {sum(len(p[1]) for p in pq_plans)} "
+          f"lanes, final {pq_final}; oracles "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
     launches = main_path(torch, plans, oracle, n_live, pq_plans, pq_expect,
                          pq_final)
     done()
 
-    done = phase("4 serving")
-    serve_launches, _ = serving_phase(torch, args.seed)
-    for k, v in serve_launches.items():
-        launches[k] = launches.get(k, 0) + v
-    done()
+    for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase)):
+        done = phase(name)
+        more, _ = run(torch, args.seed)
+        for k, v in more.items():
+            launches[k] = launches.get(k, 0) + v
+        # the serving engine's checked decode closes a reference cycle
+        # over the engine: free its parameters and pools before the next
+        # phase measures its own memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        done()
 
     out = []
     for name, source, replaces in KERNELS:

@@ -6,7 +6,7 @@ ARCHS              -> the architectures the port runs so far
 """
 from importlib import import_module
 
-ARCHS = ["qwen3-1.7b"]
+ARCHS = ["qwen3-1.7b", "hymba-1.5b"]
 ALL = ARCHS + ["paper-kvstore"]
 
 _MOD = {n: n.replace("-", "_").replace(".", "_") for n in ALL}

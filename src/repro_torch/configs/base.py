@@ -1,10 +1,10 @@
 """Config schema of the port (counterpart of `repro.configs.base`).
 
 `ModelConfig` carries the fields of the reference's `ModelConfig` that the
-ported slice reads, under the same names and with the same defaults (the
-GQA transformer family the serving engine drives); `StoreConfig` carries
-the kvstore fields. The MLA, MoE, SSM, xLSTM and hybrid fields wait for
-the slices that port those blocks.
+ported slices read, under the same names and with the same defaults (the
+GQA transformer family the serving engine drives, and hymba's hybrid
+attention + mamba block); `StoreConfig` carries the kvstore fields. The
+MLA, MoE and xLSTM fields wait for the slices that port those blocks.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense (the ported family)
+    family: str                      # dense | hybrid (the ported families)
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -29,12 +29,16 @@ class ModelConfig:
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen1.5
     rope_theta: float = 1e4
-    sliding_window: int = 0          # 0 = full attention
+    sliding_window: int = 0          # 0 = full attention (hymba: >0)
+    global_attn_every: int = 0       # hymba: every k-th layer full attn
 
     # --- block structure (other kinds raise in models.blocks) ---
     n_experts: int = 0
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
     slstm_every: int = 0
-    block_pattern: str = "transformer"
+    block_pattern: str = "transformer"  # transformer | hybrid (xlstm waits)
     n_codebooks: int = 0
 
     # --- numerics / structure ---
@@ -43,9 +47,11 @@ class ModelConfig:
     vocab_pad_to: int = 256
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    attn_impl: str = "xla"           # xla (xla_flash raises: ROADMAP.md)
+    attn_impl: str = "xla"           # xla | xla_flash (the flash kernel)
     attn_block_q: int = 512          # q-chunking of the prefill attention
+    scan_chunk: int = 256            # mamba chunk length
     kv_cache_dtype: str = "bfloat16"
+    ssm_scan_dtype: str = "float32"  # or "bfloat16" (plain scan only)
 
     @property
     def resolved_head_dim(self) -> int:

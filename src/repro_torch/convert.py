@@ -14,8 +14,10 @@ leaf for leaf.
 
 The serving slice adds `params_from_jax` (the reference's parameter
 pytree as numpy leaves, block leaves stacked `[n_groups, ...]`, into the
-port's `models.model.LM`) and `paged_kv_from_jax` / `paged_kv_to_numpy`
-(a `serving.kvcache.PagedKV` with its `BlockPool`). bfloat16 leaves
+port's `models.model.LM`; dense and hymba blocks), `caches_from_jax` /
+`caches_to_numpy` (the contiguous caches of `prefill` / `decode_step`)
+and `paged_kv_from_jax` / `paged_kv_to_numpy` (a `serving.kvcache.PagedKV`
+with its `BlockPool`). bfloat16 leaves
 (numpy's `ml_dtypes` type) travel as their 16-bit patterns.
 """
 from __future__ import annotations
@@ -141,33 +143,57 @@ def _tensor(x, device) -> torch.Tensor:
 
 def params_from_jax(tree, cfg, device="cuda"):
     """The reference's parameters (`jax.tree.map(np.asarray, params)`) as
-    the port's `LM`, one `Block` per layer, on `device`."""
+    the port's `LM`, one `Block` per layer, on `device`: the dense block's
+    leaves, and hymba's `mamba` group, `attn_ln` and `mamba_ln`."""
     from torch import nn
 
     from repro_torch.models.attention import GQA
     from repro_torch.models.blocks import Block
     from repro_torch.models.mlp import MLP
     from repro_torch.models.model import LM
+    from repro_torch.models.ssm import Mamba
+    groups = {"attn": GQA, "ffn": MLP, "mamba": Mamba}
     dev = resolve_device(device)
     if len(tree["blocks"]) != 1:
         raise NotImplementedError("params_from_jax: one block kind per "
-                                  "period (the dense transformer)")
+                                  "period (the dense transformer, hymba)")
     stacked = tree["blocks"][0]
 
-    def group(cls, d, i):
-        return cls(**{k: _tensor(np.asarray(v)[i], dev) for k, v in d.items()})
+    def leaf(v, i):
+        return _tensor(np.asarray(v)[i], dev)
 
-    blocks = nn.ModuleList(
-        Block(ln1=_tensor(np.asarray(stacked["ln1"])[i], dev),
-              attn=group(GQA, stacked["attn"], i),
-              ln2=_tensor(np.asarray(stacked["ln2"])[i], dev),
-              ffn=group(MLP, stacked["ffn"], i))
-        for i in range(cfg.n_layers))
+    def block(i):
+        return Block(**{name: (groups[name](**{k: leaf(v, i)
+                                               for k, v in d.items()})
+                               if isinstance(d, dict) else leaf(d, i))
+                        for name, d in stacked.items()})
+
+    blocks = nn.ModuleList(block(i) for i in range(cfg.n_layers))
     p = dict(blocks=blocks, final_norm=_tensor(tree["final_norm"], dev),
              embed=_tensor(tree["embed"], dev))
     if "lm_head" in tree:
         p["lm_head"] = _tensor(tree["lm_head"], dev)
     return LM(**p)
+
+
+def caches_from_jax(tree, device="cuda") -> tuple:
+    """The reference's contiguous caches (`prefill`'s, as numpy leaves:
+    a tuple over the period of dicts stacked `[n_groups, ...]`, e.g.
+    hymba's {"k", "v", "conv", "ssm"}) as the port's, on `device`, dtypes
+    kept (bfloat16 through its bits)."""
+    dev = resolve_device(device)
+    return tuple({name: _tensor(leaf, dev) for name, leaf in c.items()}
+                 for c in tree)
+
+
+def caches_to_numpy(caches) -> tuple:
+    """The port's contiguous caches -> the same structure with numpy
+    leaves; bfloat16 leaves come back as their float32 values (exact:
+    the reference takes them back with `.astype(jnp.bfloat16)`)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tuple({name: leaf(t) for name, t in c.items()} for c in caches)
 
 
 _PAGED_KV_INTS = ("block_tables", "lengths", "active", "refcount")

@@ -15,4 +15,6 @@ bskiplist_walk    det-skiplist FIND through the block-major B-skiplist view
 pq_pop            priority-queue rank-select over the live prefix + walk
 splitorder_probe  two-level split-order FIND (per-table binary search)
 paged_attention   GQA decode attention over the block pool's KV pages
+flash_attention   causal GQA prefill attention (online softmax, windows)
+selective_scan    the mamba-1 recurrence with its state in registers
 """

@@ -35,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply",
            "bskiplist_walk", "pq_pop", "splitorder_probe",
-           "paged_attention")
+           "paged_attention", "flash_attention", "selective_scan")
 WARM_LAYOUTS = ("level", "block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -60,6 +60,10 @@ _SIGNATURES = {
     "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _F, _P],
+    "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _P],
+    "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,10 +1,12 @@
 """Models of the port (counterpart of `repro.models`): the dense GQA
-transformer family.
+transformer family and hymba's hybrid attention + mamba block.
 
 common     dtype policy, norms, rotary embeddings, init, causal attention
+           ("xla" chunked, "xla_flash" on the flash_attention kernel)
 params     `Weights`: parameter groups under the reference's names
 mlp        SwiGLU
 attention  GQA forward / prefill / decode
-blocks     the dense block
+ssm        the mamba head (selective_scan kernel)
+blocks     the dense and hymba blocks
 model      init_params, forward, prefill, prefill_with_past, decode_step
 """

@@ -16,6 +16,10 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fused
+from repro_torch.kernels.flash_attention.ref import attend_flash_ref
+from repro_torch.store import exec as exec_
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NEG_INF = float("-inf")
 
@@ -104,11 +108,29 @@ def attend_causal(q, k, v, window: int = 0, compute_dtype="bfloat16",
     a chunk materialize as [B, block_q, Hkv, G, Sk]. The reference requires
     Sq to be a multiple of `block_q` above it; here the last chunk may be
     shorter (a row's arithmetic does not depend on its chunk), so prompts
-    of any length prefill. impl="xla_flash" is not ported (ROADMAP.md)."""
+    of any length prefill.
+
+    impl="xla_flash": the online-softmax flash algorithm, no [.., Sk]-wide
+    score tensor. The exec mode (`store.exec`) picks its form: `gpu` (the
+    default) launches the `flash_attention` CUDA kernel (64-key tiles,
+    tensor cores) and refuses CPU tensors; `torch` runs the plain mirror
+    of the reference's `_attend_flash_xla` over `block_q`-square tiles
+    (`kernels.flash_attention.ref.attend_flash_ref`). Both round q, k, p
+    and v to bf16 and sum in f32 as the reference does; p is rounded after
+    its tile's running max, so the two agree to bf16 level. Like "xla",
+    the last q or kv tile may be shorter than the reference allows."""
     if impl == "xla_flash":
-        raise NotImplementedError(
-            "attend_causal impl 'xla_flash' is not ported yet (ROADMAP.md "
-            "§1); use impl='xla'")
+        if exec_._resolve(None) == "gpu":
+            exec_._gpu_tensors("attend_causal", q)
+            return flash_attention_fused(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                q_offset=q_offset, window=window,
+                out_dtype=dtype_of(compute_dtype))
+        return attend_flash_ref(q, k, v, window, dtype_of(compute_dtype),
+                                block_q, q_offset)
+    if impl != "xla":
+        raise ValueError(f"attend_causal impl {impl!r}: 'xla' or "
+                         f"'xla_flash'")
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv

@@ -1,10 +1,12 @@
 """LM assembly: embeddings -> blocks -> head (counterpart of
-`repro.models.model` for the single-kind transformer families).
+`repro.models.model` for the single-kind families: the dense GQA
+transformer and hymba).
 
 The reference scans over stacked layer groups; here the layers are an
 `nn.ModuleList` walked by a Python loop, and the caches come back stacked
-over layers as `({"k": [L, B, S, Hkv, Dh], "v": ...},)`, the reference's
-`[n_groups, ...]` leaves for a period of one block.
+over layers as `({"k": [L, B, S, Hkv, Dh], "v": ...},)` (hymba adds
+"conv" [L, B, K-1, d_inner] and "ssm" [L, B, d_inner, d_state]), the
+reference's `[n_groups, ...]` leaves for a period of one block.
 
   forward            [B,S] tokens -> ([B,S,V] logits, aux)
   prefill            + contiguous KV caches
@@ -72,7 +74,7 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
 
 def _stack(caches: list[dict]) -> tuple:
     return ({name: torch.stack([c[name] for c in caches])
-             for name in ("k", "v")},)
+             for name in caches[0]},)
 
 
 def forward(p: LM, cfg, tokens, positions=None):
@@ -129,7 +131,7 @@ def decode_step(p: LM, cfg, token, pos, caches):
     new = []
     for i, (bp, win) in enumerate(zip(p.blocks, layer_windows(cfg))):
         x, c = block_decode(bp, cfg, kind, x, pos,
-                            {"k": caches[0]["k"][i], "v": caches[0]["v"][i]},
+                            {name: t[i] for name, t in caches[0].items()},
                             win)
         new.append(c)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)

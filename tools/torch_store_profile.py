@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where a plan's time goes in the PyTorch/CUDA port, per backend, on the
-main path's own stream; with --serve, where the serving engine's time goes.
+main path's own stream; with --serve, where the serving engine's time
+goes; with --hymba, where hymba-1.5b's prefill and decode time goes.
 
-    python3 tools/torch_store_profile.py [--serve]
+    python3 tools/torch_store_profile.py [--serve | --hymba]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -30,6 +31,12 @@ windows of engine steps are profiled, one while requests still arrive
 (admission, prefill and decode) and one of decode only after the last
 admission, with the same columns per engine step (the paged_attention
 kernel among the port's kernels).
+
+--hymba profiles chip_smoke.py's hymba cell: hymba-1.5b at full width and
+depth (bf16 compute, attn_impl "xla_flash", exec mode gpu), one prefill of
+8 prompts x 4,096 tokens and then 8 decode steps, each after an
+unprofiled warm-up, with the same columns per prefill and per decode step
+(the flash_attention and selective_scan kernels among the port's).
 """
 from __future__ import annotations
 
@@ -44,7 +51,10 @@ PORT_KERNELS = ("skiplist_search_kernel", "hash_probe_kernel",
                 "tier_find_kernel", "tier_apply_member_kernel",
                 "tier_apply_scan_kernel", "bskiplist_walk_kernel",
                 "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel",
-                "splitorder_probe_kernel", "paged_attention_kernel")
+                "splitorder_probe_kernel", "paged_attention_kernel",
+                "flash_mma_kernel", "flash_f32_kernel",
+                "selective_scan_kernel")
+HYMBA_DECODE_STEPS = 8
 # (label, first tick or None = after the last admission, ticks)
 SERVE_WINDOWS = (("serve arriving", 20, 30), ("serve decode", None, 10))
 SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -153,6 +163,39 @@ def serve_profile(torch, cs, exec_) -> None:
           flush=True)
 
 
+def hymba_profile(torch, cs, exec_) -> None:
+    """chip_smoke's hymba cell: one profiled prefill and
+    HYMBA_DECODE_STEPS profiled decode steps, each after a warm-up."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(cs.HYMBA_ARCH).replace(attn_impl="xla_flash")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    params.load_compute_copy(cfg.compute_dtype)
+    b, p = cs.HYMBA_BATCH, cs.HYMBA_PROMPT
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, p))).cuda()
+    st = {}
+
+    def prefill():
+        lg, st["caches"], _ = M.prefill(params, cfg, toks, p + cs.HYMBA_NEW)
+        st["tok"], st["pos"] = torch.argmax(lg[:, -1], -1), p
+
+    def decode(n):
+        for _ in range(n):
+            pos = torch.full((b,), st["pos"], device="cuda")
+            lg, st["caches"] = M.decode_step(params, cfg, st["tok"][:, None],
+                                             pos, st["caches"])
+            st["tok"], st["pos"] = torch.argmax(lg[:, 0], -1), st["pos"] + 1
+
+    prefill()
+    report(torch, exec_, prefill, 1, f"{b} x {p} tokens", "prefill",
+           "hymba prefill")
+    decode(2)
+    report(torch, exec_, lambda: decode(HYMBA_DECODE_STEPS),
+           HYMBA_DECODE_STEPS, f"{b} lanes", "step", "hymba decode")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -168,6 +211,9 @@ def main() -> int:
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
     if "--serve" in sys.argv[1:]:
         serve_profile(torch, cs, exec_)
+        return 0
+    if "--hymba" in sys.argv[1:]:
+        hymba_profile(torch, cs, exec_)
         return 0
     C = 1 << cs.LOG2_CAPACITY
     kv = cs.to_device(torch, cs.make_stream(0))
