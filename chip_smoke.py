@@ -23,9 +23,15 @@ is non-zero and no result line is printed):
    run); paged_attention at the served decode shapes (qwen3-1.7b's heads,
    32 requests, pages of 16, 128 pages a request, lengths 1..2,048, edge
    rows) in f32 (within 2e-5) and bf16 (within 3e-2, and elementwise
-   within half a bf16 step of |plain| + 2e-5), beside SDPA on gathered
-   K/V. Median time per call from CUDA events, the plain version's
-   time, a library call's time where one computes the same function
+   within half a bf16 step of |plain| + 2e-5), beside planted faults of
+   the plain version that must break that elementwise limit (the last
+   token below each length dropped, a -1 page read as page 0, a token at
+   a split boundary counted twice), edge rows for the split-KV merge (a
+   split that owns no live page, a length-0 request that must give
+   zeros) and every G the kernel is built for at a small shape, timed
+   beside SDPA on gathered K/V. Median time per call from CUDA events,
+   the plain version's time, a library call's time where one computes
+   the same function
    (`torch.searchsorted`; grouped by table for splitorder_probe, where it
    gives the position only; SDPA for the two attentions), the whole
    `gpu` dispatch's time (kernel plus glue) and the
@@ -1108,8 +1114,10 @@ def paged_attention_row(torch, rng):
     softmax's rescaling) and bf16 (within 3e-2, tests/test_kernels.py's
     tolerance, and elementwise within half a bf16 step of |plain| plus the
     f32 tolerance: the same bf16 inputs summed in f32, the kernel's output
-    rounded to bf16 once, and half a step is at most 2^-8 of the value),
-    timed in bf16 (the served type) beside `scaled_dot_product_attention`
+    rounded to bf16 once, and half a step is at most 2^-8 of the value);
+    then the planted faults, the split-KV edge rows and every G
+    (`paged_attention_faults`, `_edges`, `_groups`); timed in bf16 (the
+    served type) beside `scaled_dot_product_attention`
     with enable_gqa on K/V already gathered into contiguous
     [B, Hkv, P * page, D] tensors with a length mask (the gather is not
     timed). The bound: the K/V rows of the tokens below each length on the
@@ -1143,6 +1151,9 @@ def paged_attention_row(torch, rng):
                    f"+ 2e-5")
         print(f"paged_attention {dtype}: max |kernel - plain| "
               f"{errs[dtype]:.3e} (tolerance {tol}){rel}", flush=True)
+    paged_attention_faults(torch, q, kp, vp, tables, lengths, ref)
+    paged_attention_edges(torch, rng, kp, vp)
+    paged_attention_groups(torch, rng)
     b, h, d = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
     qg = q.reshape(b, hkv, h // hkv, d)
@@ -1188,6 +1199,152 @@ def paged_attention_row(torch, rng):
     del q, kp, vp, kc, vc, ref, lib
     torch.cuda.empty_cache()
     return r
+
+
+def paged_limit(ref):
+    """The bf16 elementwise limit: half a bf16 step of |plain| plus the
+    f32 tolerance."""
+    return 2.0 ** -8 * (ref.abs() + 2e-5) + 2e-5
+
+
+def paged_plain_twice(torch, q, kp, vp, tables, lengths, twice):
+    """The plain paged attention (`paged_attention_ref`'s arithmetic)
+    with the token at position `twice` of every request that holds it on
+    a live page counted twice (log 2 added to its score doubles its
+    softmax weight)."""
+    b, h, d = q.shape
+    _, page, hkv, _ = kp.shape
+    p = tables.shape[1]
+    safe = tables.clamp(min=0).long()
+    k = kp[safe].reshape(b, p * page, hkv, d)
+    v = vp[safe].reshape(b, p * page, hkv, d)
+    pos = torch.arange(p * page, device=q.device)[None, :]
+    valid = ((pos < lengths[:, None])
+             & (tables >= 0).repeat_interleave(page, dim=1))
+    scores = torch.einsum("bkgd,bskd->bkgs",
+                          q.reshape(b, hkv, h // hkv, d).float(),
+                          k.float()) / math.sqrt(d)
+    scores = scores + (math.log(2.0) * ((pos == twice) & valid)
+                       )[:, None, None, :]
+    scores = scores.masked_fill(~valid[:, None, None, :], float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgs,bskd->bkgd", w, v.float()).reshape(b, h, d)
+
+
+def paged_attention_faults(torch, q, kp, vp, tables, lengths, ref):
+    """Planted faults of the plain version at the served bf16 state, each
+    output rounded to bf16 as the kernel's is: the last token below each
+    length dropped, a -1 page read as page 0, and the first token of each
+    request's second split (where the kernel's merge joins two splits)
+    counted twice. Each must put an element beyond the bf16 elementwise
+    limit that the kernel keeps; the worst element of each in units of
+    the limit is printed."""
+    from repro_torch.kernels.paged_attention.kernel import split_pages
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    b, _, _ = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    boundary = split_pages(b, hkv, tables.shape[1]) * page
+    check(bool((lengths > boundary).any()), "paged_attention faults: a "
+          "request crosses a split boundary")
+    faults = {
+        "last token dropped": paged_attention_ref(
+            q, kp, vp, tables, (lengths - 1).clamp(min=1)),
+        "-1 page read as page 0": paged_attention_ref(
+            q, kp, vp, tables.clamp(min=0), lengths),
+        "a split-boundary token counted twice": paged_plain_twice(
+            torch, q, kp, vp, tables, lengths, boundary)}
+    limit = paged_limit(ref)
+    worst = {n: float(((f.to(torch.bfloat16).float() - ref).abs()
+                       / limit).max()) for n, f in faults.items()}
+    print("paged_attention planted faults, the worst element in units of "
+          "the bf16 limit: " + ", ".join(f"{n} {x:.3f}"
+                                         for n, x in worst.items()),
+          flush=True)
+    check(min(worst.values()) > 1.0, f"paged_attention: a planted fault "
+          f"stays within the bf16 limit: {worst}")
+
+
+def paged_attention_edges(torch, rng, kp, vp):
+    """Three bf16 requests on the served pools and table width: row 0 spans
+    three splits with its second split's pages all -1 (a split that owns
+    no live page while the length runs past it), row 1 has length 0 (the
+    kernel gives zeros; the plain version NaN), row 2 ends mid-page in its
+    second split. Rows 0 and 2 within the bf16 limit of the plain version,
+    row 1 exactly zero."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.kernel import split_pages
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cfg = get_config(SERVE_ARCH)
+    n, page, hkv, d = kp.shape
+    P = SERVE_PAGES_PER_REQ
+    pps = split_pages(3, hkv, P)
+    lengths = np.array([3 * pps * page, 0, pps * page + 5], np.int32)
+    tables = np.full((3, P), -1, np.int32)
+    ids = rng.permutation(n)
+    tables[0, :3 * pps] = ids[:3 * pps]
+    tables[0, pps:2 * pps] = -1
+    tables[1, :2] = ids[3 * pps:3 * pps + 2]
+    tables[2, :pps + 1] = ids[3 * pps + 2:4 * pps + 3]
+    q = torch.from_numpy(rng.standard_normal((3, cfg.n_heads, d),
+                                             dtype=np.float32)
+                         ).to(DEV).to(torch.bfloat16)
+    tt, ll = (torch.from_numpy(x).to(DEV) for x in (tables, lengths))
+    out = paged_attention(q, kp, vp, tt, ll).float()
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, kp, vp, tt, ll)
+    worst = float(((out - ref).abs() / paged_limit(ref))[[0, 2]].max())
+    print(f"paged_attention edge rows ({pps} pages a split): a split with "
+          f"no live page and a mid-page end at most {worst:.3f} of the bf16 "
+          f"limit; the length-0 row max |out| "
+          f"{float(out[1].abs().max()):.3e}", flush=True)
+    check(worst <= 1.0, f"paged_attention edge rows: {worst:.3f} of the "
+          f"bf16 limit")
+    check(bool((out[1] == 0).all()), "paged_attention: a length-0 request "
+          "gives zeros")
+
+
+def paged_attention_groups(torch, rng):
+    """Every G the kernel is built for (`GROUPS`) at a small shape: 4
+    requests, 2 KV heads, D 128, pages of 16, lengths 1, 37, 100 and 128
+    over 8-entry tables with a -1 page mid-table, in f32 (within 2e-5) and
+    bf16 (within the bf16 elementwise limit)."""
+    from repro_torch.kernels.paged_attention.kernel import GROUPS
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    b, hkv, d, page, P, n = 4, 2, 128, 16, 8, 64
+    lengths = np.array([1, 37, 100, 128], np.int32)
+    tables = np.full((b, P), -1, np.int32)
+    ids = rng.permutation(n)
+    c = 0
+    for r in range(b):
+        need = -(-int(lengths[r]) // page)
+        tables[r, :need] = ids[c:c + need]
+        c += need
+    tables[2, 1] = -1
+    tt, ll = (torch.from_numpy(x).to(DEV) for x in (tables, lengths))
+    readings = []
+    for g in GROUPS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp = (torch.from_numpy(rng.standard_normal(
+                s, dtype=np.float32)).to(DEV).to(dtype)
+                for s in ((b, hkv * g, d), (n, page, hkv, d),
+                          (n, page, hkv, d)))
+            out = paged_attention(q, kp, vp, tt, ll).float()
+            torch.cuda.synchronize()
+            ref = paged_attention_ref(q, kp, vp, tt, ll)
+            err = (out - ref).abs()
+            if dtype == torch.float32:
+                x = float(err.max())
+                check(x <= 2e-5, f"paged_attention G={g} (f32): {x}")
+            else:
+                x = float((err / paged_limit(ref)).max())
+                check(x <= 1.0, f"paged_attention G={g} (bf16): {x:.3f} of "
+                      f"the bf16 limit")
+            readings.append(f"G {g} {str(dtype)[6:]} {x:.3g}")
+    print("paged_attention per G (f32: max |kernel - plain|; bf16: the "
+          "worst element in units of the bf16 limit): "
+          + ", ".join(readings), flush=True)
 
 
 # ---------------------------------------------------------------------------

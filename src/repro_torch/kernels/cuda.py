@@ -58,8 +58,8 @@ _SIGNATURES = {
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _I, _P],
     "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
-    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _P],
+    "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
     "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -5,13 +5,14 @@ and carries `attend_causal(impl="xla_flash")`. The kernel takes the
 model's [B, S, heads, D] layout as it lies (no transpose to [B*H, S, D]
 and no padding of D to 128, which the TPU's lanes wanted); the kv head
 of query head h is h // G. On CUDA tensors it launches the kernel,
-counted in `cuda.LAUNCHES["flash_attention"]`; on CPU tensors it runs the
-plain version of the same mode (`ref.attend_flash_ref` at the kernel's
-64-key tiles, or `ref.flash_attention_ref`).
+counted in `cuda.LAUNCHES["flash_attention"]` (one per call); on CPU
+tensors it runs the plain version of the same mode (`ref.attend_flash_ref`
+at the kernel's `TILE`-key tiles, or `ref.flash_attention_ref`).
 
 Modes: "xla_flash" (q, k, p, v rounded to bf16, f32 sums: the model path,
-tensor cores; D 64 or 128) and "f32" (f32 throughout: the op's contract;
-D a multiple of 32 up to 128).
+`wgmma` tensor cores fed by TMA; D 64 or 128; f32 q, k, v are rounded to
+bf16 here, round to nearest even as the kernel's own rounding would) and
+"f32" (f32 throughout: the op's contract; D a multiple of 32 up to 128).
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from repro_torch.kernels.flash_attention.ref import (attend_flash_ref,
                                                      ref_scale)
 
 MODES = {"xla_flash": 0, "f32": 1}
-TILE = 64                 # the kernel's query and key tiles
+TILE = 64                 # the kernel's key tile: p rounds after its max
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -73,6 +74,8 @@ def flash_attention_fused(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention: 16-byte aligned tensors")
     bf = torch.bfloat16
+    if mode == "xla_flash" and q.dtype != bf:
+        q, k, v = q.to(bf), k.to(bf), v.to(bf)
     cuda.launch("flash_attention", "flash_attention_launch", cuda.ptr(q),
                 cuda.ptr(k), cuda.ptr(v), cuda.ptr(out), b, sq, sk, h, hkv,
                 d, q_offset, window, int(causal), MODES[mode],

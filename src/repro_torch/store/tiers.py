@@ -170,12 +170,13 @@ class TieredBackend:
         name = base if policy == "none" else f"{base}/{policy}"
         self.name = name + ("/b128" if warm_layout == "block" else "")
 
-    def init(self, capacity: int, hot_bucket: int = 8, device="cuda",
+    def init(self, capacity: int, hot_bucket: int = 8, hot_frac: int = 8,
+             spill_cap: int | None = None, device="cuda",
              **kw) -> TierState:
-        """Warm tier and depth-3 spill runs sized at `capacity`; hot tier
-        at ~capacity/8 cells."""
+        """Warm tier sized at `capacity`; hot tier at ~capacity/hot_frac
+        cells; depth-3 spill runs at `spill_cap` (default `capacity`)."""
         dev = resolve_device(device)
-        hot_slots = pow2_floor(max(capacity // (8 * hot_bucket), 1))
+        hot_slots = pow2_floor(max(capacity // (hot_frac * hot_bucket), 1))
         z32 = torch.tensor(0, dtype=torch.int32, device=dev)
         z64 = torch.tensor(0, dtype=torch.int64, device=dev)
         return TierState(
@@ -183,8 +184,8 @@ class TieredBackend:
             hot_meta=policy_arrays((hot_slots, hot_bucket), device=dev),
             clock=z32, n_evict=z64, n_promote=z64.clone(),
             cold=dsl.skiplist_init(capacity, device=dev),
-            spill=(spill_init(capacity, device=dev) if self.depth == 3
-                   else None))
+            spill=(spill_init(capacity if spill_cap is None else spill_cap,
+                              device=dev) if self.depth == 3 else None))
 
     # -- tier movement helpers ----------------------------------------------
 

@@ -11,8 +11,10 @@
    within 1e-5: the same bf16 rounding points and f32 sums, only their
    order differs. Cases: a binding window, q_offset > 0, G = 5 with
    D = 64 (hymba's heads), several q and kv tiles. The kernel wrapper on
-   CPU tensors (the mirror at the kernel's 64-key tiles) against the
-   reference at 64-row tiles, within 1e-5 too.
+   CPU tensors (the mirror at the kernel's `TILE`-key tiles) against the
+   reference at `TILE`-row tiles, within 1e-5 too; and the mirror on f32
+   inputs equal bit for bit to the mirror on their bf16 casts (the
+   wrapper's rounding of f32 inputs before the kernel).
 3. A ragged S (the reference asserts a multiple of the tile) against the
    unchunked `softmax_attend`, within 2e-2: the two round the softmax
    weights to bf16 at other points (p before normalising, w after).
@@ -34,9 +36,11 @@ from repro.kernels.flash_attention.ops import flash_attention as j_pallas
 from repro.kernels.flash_attention.ref import flash_attention_ref as j_ref
 from repro.models import common as jcommon
 from repro_torch.kernels import cuda
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fused
+from repro_torch.kernels.flash_attention.kernel import (TILE,
+                                                        flash_attention_fused)
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (attend_flash_ref,
+                                                     flash_attention_ref)
 from repro_torch.models import common as tcommon
 from repro_torch.store import exec as exec_
 
@@ -120,14 +124,30 @@ def test_attend_xla_flash_matches_reference(case):
 
 
 def test_kernel_wrapper_on_cpu_mirrors_the_kernel_tiles():
-    """The wrapper's CPU form is the mirror at the kernel's 64-key tiles:
-    the reference at 64-row tiles, windowed, with an offset."""
+    """The wrapper's CPU form is the mirror at the kernel's `TILE`-key
+    tiles: the reference at `TILE`-row tiles, windowed, with an offset."""
     jin, tin = _qkv(5, 1, 128, 192, 4, 2, 64)
-    want = jcommon.attend_causal(*jin, 40, "float32", block_q=64,
+    want = jcommon.attend_causal(*jin, 40, "float32", block_q=TILE,
                                  impl="xla_flash", q_offset=64)
     got = flash_attention_fused(*tin, q_offset=64, window=40,
                                 out_dtype=torch.float32)
     _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_f32_inputs_rounded_to_bf16_first_change_nothing(out_dtype):
+    """The wrapper rounds f32 q, k, v to bf16 before the xla_flash kernel:
+    the mirror at `TILE` gives the same bits on the f32 tensors, on their
+    bf16 casts and on those casts back in f32 (it rounds them to bf16
+    with the same round to nearest even first), windowed, with an offset
+    and ragged tiles."""
+    _, (q, k, v) = _qkv(8, 2, 100, 229, 10, 2, 64)
+    want = attend_flash_ref(q, k, v, 37, out_dtype, TILE, 129)
+    bf = torch.bfloat16
+    for cast in (lambda t: t.to(bf), lambda t: t.to(bf).float()):
+        got = attend_flash_ref(cast(q), cast(k), cast(v), 37, out_dtype,
+                               TILE, 129)
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_ragged_xla_flash_matches_softmax_attend():

@@ -9,7 +9,9 @@ length that ends mid-page. Tolerances are tests/test_kernels.py's: 5e-6
 for f32 (the same f32 products summed in another order), 3e-2 for bf16
 (outputs in bf16, one step is 2^-8 of the value). The CUDA kernel itself
 runs only on the card (chip_smoke.py holds it against the plain version
-at the served shapes); here the `gpu` exec mode must refuse CPU tensors.
+at the served shapes and at every G it is built for); here the `gpu` exec
+mode must refuse CPU tensors, and the launch checks, which run without a
+card, must refuse a G the kernel is not built for.
 """
 import functools
 
@@ -24,7 +26,8 @@ import repro  # noqa: F401  (enables x64)
 from repro.kernels.paged_attention.ops import paged_attention as j_pa
 from repro.kernels.paged_attention.ref import paged_attention_ref as j_ref
 from repro_torch.kernels import cuda
-from repro_torch.kernels.paged_attention.kernel import paged_attention_grouped
+from repro_torch.kernels.paged_attention.kernel import (
+    GROUPS, check_launch, paged_attention_grouped, split_pages)
 from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
@@ -131,3 +134,38 @@ def test_launcher_is_registered():
     assert "paged_attention" in cuda.KERNELS
     assert "paged_attention" in cuda.LAUNCHES
     assert cuda._SIGNATURES["paged_attention_launch"][-2] is cuda._F
+
+
+def test_kernel_groups_and_launch_checks():
+    """The kernel is built for the GQA groups of the reference's configs;
+    the launch checks (the path a CUDA call takes before the launch, here
+    on CPU tensors) pass those and refuse any other G, and a D or a page
+    the kernel does not take."""
+    assert GROUPS == (1, 2, 4, 5, 8, 16)
+    (_, _, _, _, _), (q, kp, vp, tables, lengths) = _inputs(0, "float32")
+    b, h, d = q.shape
+    hkv = kp.shape[2]
+    for g in GROUPS:
+        qg = torch.zeros((b, hkv, g, d))
+        check_launch(qg, kp, vp, tables, lengths)
+    for g in (3, 6, 32):
+        with pytest.raises(ValueError, match=f"G={g} query heads"):
+            check_launch(torch.zeros((b, hkv, g, d)), kp, vp, tables,
+                         lengths)
+    with pytest.raises(ValueError, match="D=32"):
+        check_launch(torch.zeros((b, hkv, 2, 32)), kp[..., :32],
+                     vp[..., :32], tables, lengths)
+    big = torch.zeros((2, 64, hkv, d))
+    with pytest.raises(ValueError, match="page 1..32"):
+        check_launch(q.reshape(b, hkv, h // hkv, d), big, big, tables,
+                     lengths)
+
+
+@pytest.mark.parametrize("b,hkv,p,want", [(32, 8, 128, 16), (1, 8, 128, 4),
+                                          (4, 2, 8, 4), (2, 2, 3, 3)])
+def test_split_pages(b, hkv, p, want):
+    """Table entries a split owns: the served batch (32 requests x 8 KV
+    heads, 128-entry tables) runs 8 splits of 16, a lone request splits
+    into 32 of 4; never more entries than the table holds."""
+    assert split_pages(b, hkv, p) == want
+    assert -(-p // want) * want >= p

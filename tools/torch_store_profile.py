@@ -51,9 +51,9 @@ PORT_KERNELS = ("skiplist_search_kernel", "hash_probe_kernel",
                 "tier_find_kernel", "tier_apply_member_kernel",
                 "tier_apply_scan_kernel", "bskiplist_walk_kernel",
                 "pq_count_kernel", "pq_scan_kernel", "pq_select_kernel",
-                "splitorder_probe_kernel", "paged_attention_kernel",
-                "flash_mma_kernel", "flash_f32_kernel",
-                "selective_scan_kernel")
+                "splitorder_probe_kernel", "paged_split_kernel",
+                "paged_merge_kernel", "flash_wgmma_kernel",
+                "flash_f32_kernel", "selective_scan_kernel")
 HYMBA_DECODE_STEPS = 8
 # (label, first tick or None = after the last admission, ticks)
 SERVE_WINDOWS = (("serve arriving", 20, 30), ("serve decode", None, 10))
