@@ -10,7 +10,11 @@ is non-zero and no result line is printed):
 1. Device and build: require CUDA, print the card's name and power limit
    (`nvidia-smi`), build the ten CUDA kernels from `src/repro_torch/
    kernels/csrc/` (one `nvcc` per source, in parallel). TF32 is off.
-2. Kernels: each kernel's wrapper on CUDA tensors at the main path's
+2. Kernels: first the edge sweep of the shared level walk: skiplist_search,
+   pq_pop, tier_find and tier_apply in the level layout, bit for bit against their plain versions on skiplists of
+   16, 100 and 4,096 cells (empty, 3/4 full, every key tombstoned) at 1,
+   33 and 4,097 lanes (queries 0, 2^64 - 2, KEY_INF and past the last
+   key). Then each kernel's wrapper on CUDA tensors at the main path's
    shapes, held bit for bit against its plain PyTorch version on the same
    inputs: skiplist_search and bskiplist_walk on the flat 2^24 skiplist;
    hash_probe; tier_find with and without spill and tier_apply under
@@ -53,9 +57,12 @@ is non-zero and no result line is printed):
    causal edge, the last ragged key dropped) that must exceed it; SDPA
    timed beside. selective_scan at
    tests/test_kernels.py's shapes within 2e-5 of the step-by-step plain
-   scan, and at hymba's prefill (8, 4,096, 3,200, 16) and decode (8, 1,
-   3,200, 16) shapes from a nonzero h0 within 1e-4 of max |y| and |h| of
-   the chunked plain scan.
+   scan, and so at every N it is built for at ragged D and S, S 1, from
+   h0 = None and a nonzero h0 and with unaligned operands, beside a
+   planted fault (h0 ignored) that must break that limit; at hymba's
+   prefill (8, 4,096, 3,200, 16) and decode (8, 1, 3,200, 16) shapes from
+   a nonzero h0 within 1e-4 of max |y| and |h| of the chunked plain scan,
+   timed at both shapes, the decode time beside its own bound.
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
    lanes) across the 256 chips of its 16x16 mesh folded onto one card,
    i.e. capacity 2^24. A seeded stream — a preload of 0.75 * 2^24 fresh
@@ -790,6 +797,106 @@ def splitorder_kernel_row(torch, rng):
     return r
 
 
+WALK_EDGE_CAPS = (16, 100, 4096)
+WALK_EDGE_LANES = (1, 33, 4097)
+
+
+def walk_edge_states(torch, rng):
+    """Small skiplists for the shared level walk's edges: at each of
+    WALK_EDGE_CAPS an empty one, one 3/4 full and the same with every key
+    tombstoned. Yields (label, state, stored keys as uint64)."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core.bits import from_u64
+    for cap in WALK_EDGE_CAPS:
+        empty = dsl.skiplist_init(cap, device=DEV)
+        yield f"C {cap} empty", empty, np.zeros(0, np.uint64)
+        keys = np.unique(rng.integers(1, 2**64 - 3, cap, dtype=np.uint64))
+        keys = rng.permutation(keys)[:3 * cap // 4]
+        tk = from_u64(keys, DEV)
+        full, _, _ = dsl.insert_batch(empty, tk, tk ^ 0x5A5A)
+        check(int(full.n_term) == keys.size, "walk edges: the fill")
+        yield f"C {cap} 3/4 full", full, keys
+        live = torch.arange(cap, device=DEV) < full.n_term
+        yield (f"C {cap} all tombstoned",
+               full._replace(term_mark=full.term_mark | live,
+                             n_marked=full.n_term), keys)
+
+
+def walk_edge_queries(rng, keys, t):
+    """t lanes: 0, 2^64 - 2, KEY_INF and one past the last stored key
+    first (as many as fit), then stored keys and fresh ones."""
+    special = np.array([0, 2**64 - 2, 2**64 - 1,
+                        int(keys.max()) + 1 if keys.size else 1], np.uint64)
+    pool = (np.concatenate([keys, rng.integers(1, 2**64 - 2, keys.size + 8,
+                                               dtype=np.uint64)])
+            if keys.size else rng.integers(1, 2**64 - 2, 8, dtype=np.uint64))
+    return np.concatenate([special, rng.choice(pool, max(t - 4, 0))])[:t]
+
+
+def walk_edge_sweep(torch, rng):
+    """The kernels that share `level_walk` (skiplist_search, pq_pop,
+    tier_find and tier_apply in the level layout) held bit for bit
+    against their plain versions on `walk_edge_states`, at WALK_EDGE_LANES
+    lanes (`walk_edge_queries`; for pq_pop, ranks from -1
+    up past the live total with a tenth of the lanes masked off)."""
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.bits import from_u64
+    from repro_torch.core.layout import hash_slot, skiplist_layout
+    from repro_torch.kernels.pq_pop.kernel import pq_pop_tiles
+    from repro_torch.kernels.pq_pop.ref import pq_pop_ref
+    from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
+    from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
+    from repro_torch.kernels.tier_apply.kernel import tier_apply_tiles
+    from repro_torch.kernels.tier_apply.ops import sorted_lanes
+    from repro_torch.kernels.tier_apply.ref import tier_apply_planes_ref
+    from repro_torch.kernels.tier_find.kernel import tier_find_tiles
+    from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
+    n, hits = 0, 0
+    for label, st, keys in walk_edge_states(torch, rng):
+        lay = skiplist_layout(st)
+        hot = ht.fixed_init(1 << max(st.capacity.bit_length() - 5, 0), 4,
+                            device=DEV)
+        meta = torch.zeros(tuple(hot.keys.shape), dtype=torch.int32,
+                           device=DEV)
+        total = int(st.n_term - st.n_marked)
+        for t in WALK_EDGE_LANES:
+            q = from_u64(walk_edge_queries(rng, keys, t), DEV)
+            ref = skiplist_search_ref(q, lay)
+            check(max_abs_err(torch, skiplist_search_tiles(q, lay), ref)
+                  == 0, f"walk edges: skiplist_search differs from its "
+                  f"plain version ({label}, T {t})")
+            hits += int(ref[0].sum())
+            ranks = (torch.arange(t, device=DEV) - 1
+                     + (total - t // 2 if total > t else 0)).to(torch.int32)
+            ranks[0] = -1
+            mask = torch.from_numpy(rng.random(t) > 0.1).to(DEV).to(
+                torch.int8)
+            check(max_abs_err(torch, pq_pop_tiles(ranks, mask, lay),
+                              pq_pop_ref(ranks, mask, lay)) == 0,
+                  f"walk edges: pq_pop differs ({label}, T {t})")
+            slots = hash_slot(q, hot.num_slots)
+            args = (q, slots, hot.keys, lay, None)
+            check(max_abs_err(torch, tier_find_tiles(*args),
+                              tier_find_planes_ref(*args)) == 0,
+                  f"walk edges: tier_find differs ({label}, T {t})")
+            vals = q ^ 0x77
+            lanes = torch.from_numpy(rng.random(t) > 0.1).to(DEV)
+            _, ss, sk, _, sm, krs, srs = sorted_lanes(hot.num_slots, q, vals,
+                                                      lanes)
+            me = torch.tensor([t], dtype=torch.int32, device=DEV)
+            args = (sk, ss, sm, krs, srs, hot.keys, meta, lay, me, None,
+                    "lru")
+            check(max_abs_err(torch, tier_apply_tiles(*args),
+                              tier_apply_planes_ref(*args)) == 0,
+                  f"walk edges: tier_apply differs ({label}, T {t})")
+            n += 1
+    check(hits > 0, "walk edges: some queries are found")
+    print(f"walk edges: skiplist_search, pq_pop, tier_find and tier_apply "
+          f"(level layout) bit-identical on {n} (state, T) "
+          f"cases, capacities {WALK_EDGE_CAPS}, T {WALK_EDGE_LANES}; "
+          f"{hits} skiplist hits", flush=True)
+
+
 def kernel_phase(torch, seed: int):
     """Returns the rows of the ten kernels (the tier kernels in the level
     layout); the block-layout rows of tier_find and tier_apply are
@@ -814,6 +921,9 @@ def kernel_phase(torch, seed: int):
     from repro_torch.kernels.tier_find.kernel import tier_find_tiles
     from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
     from repro_torch.store import exec as exec_
+    # the edge sweeps draw from their own generators, so every row's
+    # inputs stay those of the seed alone
+    walk_edge_sweep(torch, np.random.default_rng([seed, 1]))
     rng = np.random.default_rng(seed)
     keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
     torch.cuda.synchronize()
@@ -1056,7 +1166,8 @@ def kernel_phase(torch, seed: int):
     rows["splitorder_probe"] = splitorder_kernel_row(torch, rng)
     rows["paged_attention"] = paged_attention_row(torch, rng)
     rows["flash_attention"] = flash_attention_row(torch, rng)
-    rows["selective_scan"] = selective_scan_row(torch, rng)
+    rows["selective_scan"] = selective_scan_row(
+        torch, rng, np.random.default_rng([seed, 2]))
 
     for name, r, lv in ([("bskiplist_walk", rows["bskiplist_walk"],
                           rows["skiplist_search"])]
@@ -1551,34 +1662,99 @@ def scan_inputs(torch, rng, b, s, d, n):
     return x, dt, bm, cm, a, h0
 
 
-def selective_scan_row(torch, rng):
+SCAN_EDGE_SHAPES = ((2, 45, 77, "ragged"), (2, 100, 36, "D 36"),
+                    (2, 1, 77, "S 1"))
+
+
+def scan_within(torch, got, want, tol=2e-5):
+    """The worst of |got - want| / (tol + tol |want|) over y and h_last:
+    at most 1 is within tests/test_kernels.py's limit."""
+    return max(float(((g - w).abs() / (tol + tol * w.abs())).max())
+               for g, w in zip(got, want))
+
+
+def scan_edge_sweep(torch, rng):
+    """selective_scan against the step-by-step plain scan within 2e-5 at
+    every N of STATE_SIZES, at SCAN_EDGE_SHAPES (D 77: no block's channel
+    count divides it, and the scalar x path; D 36: the vector one, with a
+    block reaching past D; S 45 and 100: not a multiple of the 32-step
+    staging chunk, 100 wrapping the 3-slot ring; S 1), from h0 = None and
+    from a nonzero h0; at N 16 also with every operand one float off
+    16-byte alignment (the kernel's scalar paths). A planted fault, the kernel run
+    from h0 = None held against the plain scan from the nonzero h0 (h0
+    ignored), must break that limit at every case. Returns the largest
+    |kernel - plain|."""
+    from repro_torch.kernels.selective_scan.kernel import (
+        STATE_SIZES, selective_scan_fused)
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    worst, fault, err, n_cases = 0.0, math.inf, 0.0, 0
+
+    def off_by_one(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+
+    for n in STATE_SIZES:
+        for b, s, d, label in SCAN_EDGE_SHAPES:
+            ins = scan_inputs(torch, rng, b, s, d, n)
+            want = selective_scan_ref(*ins)
+            want0 = selective_scan_ref(*ins[:5])
+            runs = [("", ins)]
+            if n == 16 and s > 1:
+                runs.append((", unaligned", tuple(off_by_one(t)
+                                                  for t in ins)))
+            for how, args in runs:
+                got = selective_scan_fused(*args)
+                got0 = selective_scan_fused(*args[:5])
+                w = max(scan_within(torch, got, want),
+                        scan_within(torch, got0, want0))
+                check(w <= 1.0, f"selective_scan edge (N {n}, {label}{how}) "
+                      f"differs from the plain scan: {w:.3f} of 2e-5 + "
+                      f"2e-5 |plain|")
+                f = scan_within(torch, got0, want)
+                check(f > 1.0, f"selective_scan edge (N {n}, {label}{how}): "
+                      f"the planted fault (h0 ignored) stays within the limit "
+                      f"({f:.3f})")
+                worst, fault = max(worst, w), min(fault, f)
+                err = max(err, max(float((g - w_).abs().max())
+                                    for g, w_ in zip(got, want)))
+                n_cases += 1
+    print(f"selective_scan edges: {n_cases} cases (N {STATE_SIZES}, ragged "
+          f"D and S, S 1, h0 None and nonzero, unaligned) within "
+          f"{worst:.3f} of 2e-5 + 2e-5 |plain|; the planted fault (h0 "
+          f"ignored) at least {fault:.1f} of it", flush=True)
+    return err
+
+
+def selective_scan_row(torch, rng, edge_rng):
     """The kernel against the plain step-by-step scan at
-    tests/test_kernels.py's three shapes within its 2e-5 (atol and rtol),
-    and against the chunked associative scan that exec mode torch runs
-    at hymba's served prefill (8, 4,096, 3,200, 16) and decode (8, 1,
-    3,200, 16) shapes, from a nonzero h0, within 1e-4 of the largest |y|
-    and |h| (f32 throughout; the two sum in other orders). Timed at the
-    prefill shape; no PyTorch call computes the scan. The bound: the
-    larger of the bytes (x, y, dt, B, C, A, h0, h_last once) over the HBM
-    rate, the exps (one per (b, t, d, n)) over the SFU's rate and the six
-    flops per (b, t, d, n) (dt*A, *h, the B FMA, the C FMA) over the f32
-    rate."""
+    tests/test_kernels.py's three shapes within its 2e-5 (atol and rtol)
+    and at `scan_edge_sweep`'s edges, and against the chunked associative
+    scan that exec mode torch runs at hymba's served prefill (8, 4,096,
+    3,200, 16) and decode (8, 1, 3,200, 16) shapes, from a nonzero h0,
+    within 1e-4 of the largest |y| and |h| (f32 throughout; the two sum in
+    other orders). Timed at the prefill shape, and at the decode shape
+    beside its own bound; no PyTorch call computes the scan.
+    The bound: the larger of the bytes (x, y, dt, B, C, A, h0, h_last
+    once) over the HBM rate, the exps (one per (b, t, d, n)) over the
+    SFU's rate and the six flops per (b, t, d, n) (dt*A, *h, the B FMA,
+    the C FMA) over the f32 rate."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
     from repro_torch.kernels.selective_scan.ops import selective_scan
     from repro_torch.kernels.selective_scan.ref import (
         selective_scan_chunked, selective_scan_ref)
-    errs = []
+    errs = [scan_edge_sweep(torch, edge_rng)]
     for shape in ((1, 32, 64, 8), (2, 64, 128, 16), (2, 128, 64, 8)):
         ins = scan_inputs(torch, rng, *shape)
         got = selective_scan_fused(*ins)
         torch.cuda.synchronize()
-        for g, want in zip(got, selective_scan_ref(*ins)):
-            worst = float(((g - want).abs() / (2e-5 + 2e-5 * want.abs()))
-                          .max())
-            errs.append(float((g - want).abs().max()))
-            check(worst <= 1.0, f"selective_scan {shape} differs from its "
-                  f"plain version (at {worst:.3f} of 2e-5 + 2e-5 |plain|)")
+        want = selective_scan_ref(*ins)
+        worst = scan_within(torch, got, want)
+        errs += [float((g - w).abs().max()) for g, w in zip(got, want)]
+        check(worst <= 1.0, f"selective_scan {shape} differs from its "
+              f"plain version (at {worst:.3f} of 2e-5 + 2e-5 |plain|)")
     cfg = get_config(HYMBA_ARCH)
     d, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
     out = {}
@@ -1597,26 +1773,33 @@ def selective_scan_row(torch, rng):
               f"nonzero h0: max |kernel - plain| y {ey:.3e} ({ry:.3e} of max "
               f"|y|), h_last {eh:.3e} ({rh:.3e} of max |h|)", flush=True)
         out[s] = ins
+
+    def scan_bound(ins):
+        x, dt, bm, cm, a, h0 = ins
+        elems = x.shape[0] * x.shape[1] * d * n
+        t_bytes = 4 * (2 * x.numel() + dt.numel() + bm.numel() + cm.numel()
+                       + a.numel() + 2 * h0.numel()) / HBM_BYTES_PER_S
+        t_ops = max(elems / EXP_PER_S, 6 * elems / OPS_PER_S)
+        return ((t_ops * 1e3, "operations") if t_ops >= t_bytes
+                else (t_bytes * 1e3, "bytes"))
+
     ins = out[HYMBA_PROMPT]
-    x, dt, bm, cm, a, h0 = ins
-    elems = HYMBA_BATCH * HYMBA_PROMPT * d * n
-    t_bytes = 4 * (2 * x.numel() + dt.numel() + bm.numel() + cm.numel()
-                   + a.numel() + 2 * h0.numel()) / HBM_BYTES_PER_S
-    t_ops = max(elems / EXP_PER_S, 6 * elems / OPS_PER_S)
-    dec = out[1]
     r = dict(max_abs_err=max(errs), lanes=HYMBA_BATCH * d,
              ms=median_ms(torch, lambda: selective_scan_fused(*ins)),
              plain_ms=median_ms(torch, lambda: selective_scan_chunked(
                  *ins, chunk=cfg.scan_chunk), 3),
              library_ms=None,
              dispatch_ms=median_ms(torch, lambda: selective_scan(*ins)),
-             bound=((t_ops * 1e3, "operations") if t_ops >= t_bytes
-                    else (t_bytes * 1e3, "bytes")))
-    print(f"selective_scan decode shape: "
-          f"{median_ms(torch, lambda: selective_scan_fused(*dec)):.6f} ms "
-          f"per call; prefill shape: {elems} (b, t, d, n) elements",
+             bound=scan_bound(ins))
+    dec = out[1]
+    dec_bound, dec_by = scan_bound(dec)
+    dec_ms = median_ms(torch, lambda: selective_scan_fused(*dec))
+    print(f"selective_scan decode shape (B {HYMBA_BATCH}, S 1): "
+          f"{dec_ms:.6f} ms per call, bound {dec_bound:.7f} ms by {dec_by} "
+          f"({dec_ms / dec_bound:.1f}x the bound); prefill shape: "
+          f"{HYMBA_BATCH * HYMBA_PROMPT * d * n} (b, t, d, n) elements",
           flush=True)
-    del out, ins, dec, x, dt, bm, cm, a, h0
+    del out, ins, dec
     torch.cuda.empty_cache()
     return r
 

@@ -49,55 +49,78 @@ __device__ __forceinline__ bool bucket_probe(u64 q, int slot, const u64* keys,
   return false;
 }
 
-// Key of level r at index idx (already clipped to [0, c1 - 1]); past the
-// level's capacity the padded rectangle holds KEY_INF.
-__device__ __forceinline__ u64 level_key(const u64* lvl_keys, const int* off,
-                                         int r, int idx) {
-  int cap = off[r + 1] - off[r];
-  return idx < cap ? lvl_keys[off[r] + idx] : KEY_INF_U64;
+// The first of a row's 4 candidates with q <= key, 0 when none is.
+__device__ __forceinline__ int first_le(u64 q, const u64 (&key)[4]) {
+  int sel = 0;
+#pragma unroll
+  for (int p = 3; p >= 1; --p)
+    if (q <= key[p]) sel = p;
+  return q <= key[0] ? 0 : sel;
 }
 
-// Level-major descent: the top fan-out-4 probe, then `levels` steps each
-// taking the first of 4 children with q <= key. `off` holds levels + 1
-// offsets (in shared memory). Returns found; *idx = terminal index.
+// v[sel] by selects, so the candidates stay in registers (an indexed read
+// of a register array would go through local memory).
+template <typename T>
+__device__ __forceinline__ T pick(const T (&v)[4], int sel) {
+  T out = v[0];
+#pragma unroll
+  for (int p = 1; p < 4; ++p)
+    if (sel == p) out = v[p];
+  return out;
+}
+
+// Level-major descent with one memory round trip a level. Row r's four
+// candidates (start + j, j < 4) are loaded together with their child
+// entries, all at once; the first with q <= key is picked from registers
+// and its child, already loaded, is the next row's start. The top row
+// starts at 0; row 0's children point into the terminal planes, whose four
+// candidate keys and marks make the last round. So a walk is L + 1 rounds
+// of independent loads, against up to 5 dependent loads a level for a
+// walk that reads the child start first and then the keys one by one.
+//
+// The result is the reference `level_walk`'s on the padded [L, C1]
+// rectangle exactly: a candidate index clips to [0, c1 - 1] and one past
+// its level's capacity reads KEY_INF and child 0; terminal candidates clip
+// to [0, C - 1]; the first-true of an all-false row is 0. (The top row's
+// capacity is >= 4 and c1 >= 4, so its unclipped probe is the same.) The
+// speculative loads are the cells the reference reads on some path; the
+// work's own reads (chip_smoke.py's bound) do not count them.
+//
+// One thread a query; `off` holds levels + 1 offsets (in shared memory).
+// Returns found; *idx = terminal index.
 __device__ __forceinline__ bool level_walk(u64 q, const u64* lvl_keys,
                                            const int* lvl_child, const int* off,
                                            int levels, int c1,
                                            const u64* term_keys,
                                            const int8_t* term_mark, int cap,
                                            int* idx) {
-  int i = 0;
-  for (int j = 0; j < 4; ++j) {        // top row: capacity >= 4 always
-    if (q <= lvl_keys[off[levels - 1] + j]) {
-      i = j;
-      break;
-    }
-  }
+  int start = 0;
+  int hi = off[levels];
   for (int r = levels - 1; r >= 0; --r) {
-    int ic = clampi(i, 0, c1 - 1);
-    int cap_r = off[r + 1] - off[r];
-    int start = ic < cap_r ? lvl_child[off[r] + ic] : 0;
-    int sel = 0;
-    if (r == 0) {
-      for (int j = 0; j < 4; ++j) {
-        if (q <= term_keys[clampi(start + j, 0, cap - 1)]) {
-          sel = j;
-          break;
-        }
-      }
-    } else {
-      for (int j = 0; j < 4; ++j) {
-        if (q <= level_key(lvl_keys, off, r - 1, clampi(start + j, 0, c1 - 1))) {
-          sel = j;
-          break;
-        }
-      }
+    const int lo = off[r];
+    u64 key[4];
+    int child[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int c = clampi(start + p, 0, c1 - 1);
+      const bool in = c < hi - lo;
+      key[p] = in ? lvl_keys[lo + c] : KEY_INF_U64;
+      child[p] = in ? lvl_child[lo + c] : 0;
     }
-    i = start + sel;
+    start = pick(child, first_le(q, key));
+    hi = lo;
   }
-  i = clampi(i, 0, cap - 1);
-  *idx = i;
-  return term_keys[i] == q && term_mark[i] == 0;
+  u64 key[4];
+  int at[4], hit[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {          // keys and marks in one round
+    at[p] = clampi(start + p, 0, cap - 1);
+    key[p] = term_keys[at[p]];
+    hit[p] = key[p] == q && term_mark[at[p]] == 0;
+  }
+  const int sel = first_le(q, key);
+  *idx = pick(at, sel);
+  return pick(hit, sel) != 0;
 }
 
 // Keys per B-skiplist node (core.layout.BSKIP_BLOCK).
@@ -164,8 +187,8 @@ __device__ __forceinline__ bool warm_walk(u64 q, int blocked, const u64* keys,
   if (blocked)
     return block_walk<1>(q, keys, levels, width, term_keys, term_mark, cap,
                          n_pad, idx);
-  return level_walk(q, keys, child, off, levels, width, term_keys, term_mark,
-                    cap, idx);
+  return level_walk(q, keys, child, off, levels, width, term_keys,
+                    term_mark, cap, idx);
 }
 
 // Cold-tier probe: searchsorted-left of q in every sorted run

@@ -22,6 +22,7 @@ which walk they took.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -44,7 +45,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every exported launcher (pointers and the stream as c_void_p)
 _SIGNATURES = {
     "skiplist_search_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
-                               _P],
+                               _I, _P],
     "hash_probe_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
     "tier_find_launch": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                          _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
@@ -154,6 +155,16 @@ def launch(kernel: str, fn: str, *args, layout: str | None = None) -> None:
     LAUNCHES[kernel] += 1
     if layout is not None:
         LAUNCHES[f"{kernel}/{layout}"] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return _sm_count(torch.device(device).index or 0)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
