@@ -14,7 +14,18 @@ is non-zero and no result line is printed):
    pq_pop, tier_find and tier_apply in the level layout, bit for bit against their plain versions on skiplists of
    16, 100 and 4,096 cells (empty, 3/4 full, every key tombstoned) at 1,
    33 and 4,097 lanes (queries 0, 2^64 - 2, KEY_INF and past the last
-   key). Then each kernel's wrapper on CUDA tensors at the main path's
+   key). Then the edge sweeps of the two redesigned kernels, bit for bit:
+   tier_apply in both layouts under none / lru / size at 1, 777 and
+   65,536 lanes (mixed keys, every lane in one slot, key and slot runs
+   across the scan's tiles), eviction caps 0, 1 and K, with no spill
+   tier, a spill tier of empty runs, one run and 64 runs (a run of one
+   cell, a run of tombstones); pq_pop on heaps of 1,000 and 70,000 cells
+   (nearly full, a head tombstone run over many chunks, all tombstoned)
+   with no lane masked in, ranks -1, want_max in the first or the last
+   chunk or at a chunk's end, and ranks past the live total, its
+   published stop index held against the expected one; each sweep
+   counts the cases that reach each boundary and requires them all.
+   Then each kernel's wrapper on CUDA tensors at the main path's
    shapes, held bit for bit against its plain PyTorch version on the same
    inputs: skiplist_search and bskiplist_walk on the flat 2^24 skiplist;
    hash_probe; tier_find with and without spill and tier_apply under
@@ -63,6 +74,13 @@ is non-zero and no result line is printed):
    prefill (8, 4,096, 3,200, 16) and decode (8, 1, 3,200, 16) shapes from
    a nonzero h0 within 1e-4 of max |y| and |h| of the chunked plain scan,
    timed at both shapes, the decode time beside its own bound.
+   tier_apply and tier_find are also timed at every plan width of the
+   main path (4,096-lane workload and 65,536-lane preload plans, both
+   layouts, tier_apply with and without spill), and pq_pop at its three
+   shapes (a pq workload plan, a preload plan with no pop lane, a served
+   pop plan on the scheduler's 1,024-entry heap), each launch apart
+   (`split_ms`), beside each shape's bound (`shapes_only` runs these
+   timings alone, on whichever port `repro_torch` imports).
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
    lanes) across the 256 chips of its 16x16 mesh folded onto one card,
    i.e. capacity 2^24. A seeded stream — a preload of 0.75 * 2^24 fresh
@@ -88,7 +106,8 @@ is non-zero and no result line is printed):
    Each cell's kernel launch counts are set to 0 just before it and read
    just after; every cell must launch its kernels (tiered3/b128 the
    block layout of tier_find and tier_apply and never the level layout;
-   the three kernel-less cells none).
+   the three kernel-less cells none), and tier_apply and pq_pop make one
+   call of 2 launches on every plan, counted by plan width.
 4. Serving: qwen3-1.7b at full width and depth (seeded f32 parameters,
    bf16 compute) behind `serving.engine.Engine` (32 slots, 4,096 pages of
    16 tokens) on `serving.traffic.make_trace` (64 requests, seed 0),
@@ -119,12 +138,15 @@ is non-zero and no result line is printed):
    the torch-mode prefill one token short must exceed) and every gpu
    token the argmax of a torch-mode teacher-forced `forward` unless its top-2
    margin is below 1e-3.
-6. A `kernels` JSON line, then the last line
+6. The calls by shape of tier_apply, tier_find and pq_pop over phases
+   3-5, a `kernels` JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import functools
 import gc
 import json
 import math
@@ -673,6 +695,13 @@ def build_pq_heap(torch, rng):
     return s
 
 
+def print_shape(name, shape, r):
+    print(f"kernel {name} at {shape}: {r['ms']:.6f} ms/call (launches "
+          f"{', '.join(f'{x:.6f}' for x in r['launch_ms'])} ms), bound "
+          f"{r['bound_ms']:.7f} ms by {r['bound_by']}, "
+          f"{r['ms'] / r['bound_ms']:.1f}x the bound", flush=True)
+
+
 def print_row(name, r, lanes):
     print(f"kernel {name}: {r['ms']:.6f} ms/call (plain "
           f"{r['plain_ms']:.6f} ms, library {r['library_ms']}, bound "
@@ -680,6 +709,250 @@ def print_row(name, r, lanes):
           f"{r['ms'] / r['bound_ms']:.1f}x the bound) at {lanes} lanes; "
           f"whole gpu dispatch {r['dispatch_ms']:.6f} ms, glue "
           f"{r['dispatch_ms'] - r['ms']:.6f} ms", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: tier_apply, tier_find and pq_pop at every shape the main path
+# calls them with, each launch timed apart
+# ---------------------------------------------------------------------------
+
+# the pq cell's heap is 2^PQ_LOG2_CAPACITY; the serving scheduler's
+# (`Engine`'s max_pending) holds 1,024 entries, and a served pop plan pops
+# at most 4 (`Engine._admit`)
+SERVE_PQ_CAPACITY = 1024
+SERVE_PQ_LIVE = 512
+SERVE_PQ_LANES = 4
+
+
+def split_ms(torch, fn, reps: int = 15) -> list:
+    """Median device time of each kernel launch that one call of `fn`
+    makes, in launch order: CUDA events around every `cuda.launch` (a
+    sleep kernel ahead of each call, as in `median_ms`)."""
+    from repro_torch.kernels import cuda
+    orig = cuda.launch
+    marks, per = [], []
+
+    def timed(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        orig(*a, **k)
+        e1.record()
+        marks.append((e0, e1))
+
+    cuda.launch = timed
+    try:
+        for _ in range(reps):
+            marks.clear()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(20_000_000)
+            fn()
+            torch.cuda.synchronize()
+            per.append([a.elapsed_time(b) for a, b in marks])
+    finally:
+        cuda.launch = orig
+    return [statistics.median(x) for x in zip(*per)]
+
+
+def tier_find_bound(torch, q, slots, hot_keys, wl, sp, layout):
+    """The bound of a tier_find call (`bound`): the replays of its three
+    probes plus its lanes' inputs and outputs and the offset tables.
+    Returns ((bound_ms, bound_by), the replayed outputs)."""
+    reads = Reads()
+    walk = walk_reads if layout == "level" else block_reads
+    out = bucket_reads(torch, reads, q, slots, hot_keys, False)
+    out += walk(torch, reads, q, wl)
+    tables = 4 * (len(wl.offsets) if layout == "level" else 0)
+    if sp is not None:
+        out += spill_reads(torch, reads, q, sp)
+        tables += 4 * sp.run_off.numel()
+    t = q.numel()
+    return bound(torch, reads, t * (8 + 4 + 3 * (1 + 4)) + tables), out
+
+
+def tier_apply_bound(torch, sk, ss, sm, hot_keys, meta, wl, sp, layout):
+    """The bound of a tier_apply call: the membership replays on the
+    masked queries (the whole bucket row, which the kernel reads for its
+    empty cells, and the row's metadata), plus the lanes' inputs and the
+    nine output planes. Returns ((bound_ms, bound_by), in_warm replayed)."""
+    mq = torch.where(sm != 0, sk, -1)
+    reads = Reads()
+    f_hot, _ = bucket_reads(torch, reads, mq, ss, hot_keys, True)
+    walk = walk_reads if layout == "level" else block_reads
+    f_warm, _ = walk(torch, reads, mq, wl)
+    tables = 4 * (len(wl.offsets) if layout == "level" else 0)
+    if sp is not None:
+        spill_reads(torch, reads, mq, sp)
+        tables += 4 * sp.run_off.numel()
+    m, b = hot_keys.shape
+    reads.add("meta", 4, ss.long().clamp(0, m - 1)[:, None] * b
+              + torch.arange(b, device=sk.device))
+    k = sk.numel()
+    in_warm = f_warm.bool() & (f_hot == 0) & (sm != 0)
+    return bound(torch, reads, k * (8 + 4 + 1 + 4 + 4) + k * (6 + 3 * 4)
+                 + 4 + tables), in_warm
+
+
+def shape_row(torch, fn, bnd):
+    """Time `fn` as one call and launch by launch, beside its bound."""
+    return dict(ms=median_ms(torch, fn), launch_ms=split_ms(torch, fn),
+                bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def print_shapes(tier_rows, pq_rows):
+    """The `kernel` lines of every shape the main path calls tier_apply,
+    tier_find and pq_pop with."""
+    for (kern, layout, label, lanes), r in tier_rows.items():
+        print_shape(f"{kern}/{layout}", f"{label}, {lanes} lanes", r)
+    for label, r in pq_rows.items():
+        print_shape("pq_pop", label, r)
+
+
+def tier_shapes(torch, rng, keys, t3, t2):
+    """tier_apply (policy lru, eviction cap = the lanes) and tier_find at
+    the main path's two plan widths: a workload plan of WL_LANES lanes (3/4
+    stored keys, 95% of the lanes inserting) and a preload plan of
+    PRELOAD_LANES fresh keys, every lane inserting; both warm layouts;
+    tier_apply with spill (tiered3) and without (hash+skiplist), tier_find
+    with spill. Each is checked against its plain version first. A block
+    row's bound is at most the level row's (`kernel_phase`). Returns the
+    rows keyed (kernel, layout, spill label, lanes)."""
+    from repro_torch.core.bits import from_u64
+    from repro_torch.core.layout import (bskiplist_layout, hash_slot,
+                                         skiplist_layout, spill_layout)
+    from repro_torch.kernels.tier_apply.kernel import tier_apply_tiles
+    from repro_torch.kernels.tier_apply.ops import sorted_lanes
+    from repro_torch.kernels.tier_apply.ref import tier_apply_planes_ref
+    from repro_torch.kernels.tier_find.kernel import tier_find_tiles
+    from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
+    rows = {}
+    fresh = rng.integers(1, 2**64 - 2, PRELOAD_LANES, dtype=np.uint64)
+    for lanes, qn, share in ((WL_LANES, mixed_keys(rng, keys, WL_LANES),
+                              0.95), (PRELOAD_LANES, fresh, 1.0)):
+        q = from_u64(qn, DEV)
+        vals = from_u64(rng.integers(0, 2**64 - 1, lanes, dtype=np.uint64),
+                        DEV)
+        mask = torch.from_numpy(rng.random(lanes) < share).to(DEV)
+        for st, label in ((t3, "spill"), (t2, "no spill")):
+            sp = (None if st.spill is None else
+                  spill_layout(st.spill.keys, st.spill.dead,
+                               st.spill.run_start, st.spill.n))
+            _, ss, sk, _, sm, krs, srs = sorted_lanes(st.hot.num_slots, q,
+                                                      vals, mask)
+            me = torch.tensor([lanes], dtype=torch.int32, device=DEV)
+            slots = hash_slot(q, st.hot.num_slots)
+            bounds = {}
+            for layout, wl in (("level", skiplist_layout(st.cold)),
+                               ("block", bskiplist_layout(st.cold))):
+                args = (sk, ss, sm, krs, srs, st.hot.keys, st.hot_meta, wl,
+                        me, sp, "lru")
+                got = tier_apply_tiles(*args)
+                check(max_abs_err(torch, got, tier_apply_planes_ref(*args))
+                      == 0, f"tier_apply ({label}, {layout}, {lanes} "
+                      f"lanes) differs from its plain version")
+                bnd, in_warm = tier_apply_bound(torch, sk, ss, sm,
+                                                st.hot.keys, st.hot_meta, wl,
+                                                sp, layout)
+                check(torch.equal(got[0].bool(), in_warm),
+                      "tier_apply: the bound's replay differs")
+                bounds[("tier_apply", layout)] = bnd
+                if sp is not None:
+                    fargs = (q, slots, st.hot.keys, wl, sp)
+                    got = tier_find_tiles(*fargs)
+                    check(max_abs_err(torch, got, tier_find_planes_ref(
+                        *fargs)) == 0, f"tier_find ({layout}, {lanes} "
+                        f"lanes) differs from its plain version")
+                    fb, replayed = tier_find_bound(torch, q, slots,
+                                                   st.hot.keys, wl, sp,
+                                                   layout)
+                    check(max_abs_err(torch, got, replayed) == 0,
+                          "tier_find: the bound's replay differs")
+                    bounds[("tier_find", layout)] = fb
+                for kern in ("tier_apply", "tier_find"):
+                    if (kern, layout) not in bounds:
+                        continue
+                    bnd = bounds[(kern, layout)]
+                    if layout == "block":
+                        bnd = min(bnd, bounds[(kern, "level")])
+                    fn = ((lambda a=args: tier_apply_tiles(*a))
+                          if kern == "tier_apply"
+                          else (lambda a=fargs: tier_find_tiles(*a)))
+                    rows[(kern, layout, label, lanes)] = shape_row(
+                        torch, fn, bnd)
+    return rows
+
+
+def build_small_heap(torch, rng, capacity, live, popped):
+    """A pq heap of `capacity` cells holding `live` priority keys (three
+    bands, tickets in a seeded order), the smallest `popped` of them
+    popped, so a run of tombstones sits at its head."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core.bits import from_u64
+    prio = rng.integers(0, 3, live).astype(np.uint64)
+    ticket = rng.permutation(live).astype(np.uint64)
+    tk = from_u64((prio << np.uint64(32)) | ticket, DEV)
+    s = dsl.skiplist_init(capacity, device=DEV)
+    s, _, _ = dsl.insert_batch(s, tk, from_u64(RID_BASE + ticket, DEV))
+    ranks = torch.arange(popped, dtype=torch.int32, device=DEV)
+    found, _, idx = dsl.pop_rank_select(s, ranks, torch.ones_like(
+        ranks, dtype=torch.bool))
+    return dsl.pop_mark(s, idx, found)
+
+
+def pq_shapes(torch, rng, heap, ranks, m8):
+    """pq_pop at the main path's three shapes: a pq workload plan (the
+    given ranks on the 2^PQ_LOG2_CAPACITY heap with its head tombstone
+    run), a preload plan (PRELOAD_LANES lanes, no pop lane) on the same
+    heap, and a served pop plan (SERVE_PQ_LANES lanes, ranks 0..) on a
+    heap of the serving scheduler's capacity. Each is checked against its plain
+    version first. Returns the rows keyed by shape."""
+    from repro_torch.core.layout import skiplist_layout
+    from repro_torch.kernels.pq_pop.kernel import pq_pop_tiles
+    from repro_torch.kernels.pq_pop.ref import pq_pop_ref
+    small = build_small_heap(torch, rng, SERVE_PQ_CAPACITY, SERVE_PQ_LIVE,
+                             SERVE_PQ_LIVE // 8)
+    serve_r = torch.arange(SERVE_PQ_LANES, dtype=torch.int32, device=DEV)
+    none_r = torch.full((PRELOAD_LANES,), -1, dtype=torch.int32, device=DEV)
+    rows = {}
+    for label, st, r, m in (
+            ("plan", heap, ranks, m8),
+            ("no pop", heap, none_r, torch.zeros_like(none_r,
+                                                       dtype=torch.int8)),
+            ("serving", small, serve_r, torch.ones_like(serve_r,
+                                                        dtype=torch.int8))):
+        lay = skiplist_layout(st)
+        got = pq_pop_tiles(r, m, lay)
+        check(max_abs_err(torch, got, pq_pop_ref(r, m, lay)) == 0,
+              f"pq_pop ({label}) differs from its plain version")
+        reads = Reads()
+        pq_reads(torch, reads, r, m, lay, got[0], got[1])
+        bnd = bound(torch, reads, r.numel() * (4 + 1 + 1 + 4)
+                    + 4 * len(lay.offsets))
+        rows[f"{label}, {r.numel()} lanes, {st.term_keys.numel()} cells"] = \
+            shape_row(torch, lambda a=(r, m, lay): pq_pop_tiles(*a), bnd)
+    return rows
+
+
+def shapes_only(torch, seed: int) -> None:
+    """The per-shape timing alone, on the port that `repro_torch` imports
+    (e.g. `PYTHONPATH=<tree>/src python3 -c 'import chip_smoke, torch;
+    chip_smoke.shapes_only(torch, 1)'` from a tree's root, after
+    `repro_torch.kernels.cuda.build_all()`): the tier rows on the inputs
+    `kernel_phase` builds from the same seed, the pq rows on a heap and
+    plan drawn alike."""
+    rng = np.random.default_rng(seed)
+    keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
+    del flat, table
+    tier_rows = tier_shapes(torch, np.random.default_rng([seed, 5]), keys,
+                            t3, t2)
+    del t3, t2
+    torch.cuda.empty_cache()
+    heap = build_pq_heap(torch, rng)
+    T = WL_LANES
+    pop = torch.from_numpy(rng.permutation(T) < T // 2).to(DEV)
+    ranks = torch.cumsum(pop.to(torch.int32), 0, dtype=torch.int32) - 1
+    print_shapes(tier_rows, pq_shapes(torch, np.random.default_rng([seed, 6]),
+                                      heap, ranks, pop.to(torch.int8)))
 
 
 def build_splitorder(torch, rng):
@@ -897,6 +1170,285 @@ def walk_edge_sweep(torch, rng):
           f"{hits} skiplist hits", flush=True)
 
 
+# the redesigned kernels' edge sweep: tier_apply at 1 lane, at a width
+# that is not a multiple of the scan tile (3 tiles and 9 lanes) and at a
+# preload plan's; pq_pop on heaps whose capacities are not multiples of
+# its chunk
+TA_EDGE_LANES = (1, 3 * 256 + 9, 65536)
+TA_EDGE_SLOTS = 64
+TA_EDGE_BUCKET = 16
+PQ_EDGE_CAPS = (1000, 70000)
+PQ_EDGE_LANES = (1, 300, 4097)
+
+
+def sorted_runs(torch, rng, sizes, dead_runs, pad):
+    """Spill planes of sorted runs of fresh keys, one a size (0 = an empty
+    run), a tenth of each longer run tombstoned and every cell of the runs
+    in `dead_runs`; `pad` KEY_INF cells after them. Returns (SpillLayout,
+    stored keys as uint64)."""
+    from repro_torch.core.bits import from_u64, ordered
+    from repro_torch.core.layout import SpillLayout
+    parts, dead, off = [], [], [0]
+    for r, n in enumerate(sizes):
+        k = from_u64(rng.integers(1, 2**64 - 2, n, dtype=np.uint64), DEV)
+        parts.append(k[torch.argsort(ordered(k))])
+        d = torch.from_numpy((rng.random(n) < 0.1) & (n > 1)).to(DEV)
+        dead.append(torch.ones_like(d) if r in dead_runs else d)
+        off.append(off[-1] + n)
+    keys = torch.cat(parts + [torch.full((pad,), -1, dtype=torch.int64,
+                                         device=DEV)])
+    dead = torch.cat(dead + [torch.zeros(pad, dtype=torch.bool, device=DEV)])
+    lay = SpillLayout(keys=keys, dead=dead.to(torch.int8),
+                      run_off=torch.tensor(off, dtype=torch.int32,
+                                           device=DEV))
+    return lay, keys[:off[-1]].cpu().numpy().view(np.uint64)
+
+
+def tier_apply_edge_lanes(torch, rng, label, k, pool, same_slot):
+    """k lanes of one edge case: "mixed" (stored keys and fresh ones),
+    "one slot" (every lane in one hot slot, 3/4 of them distinct keys),
+    "runs" (keys repeated 1 to 40 times, so key runs and slot runs cross
+    the scan's tile boundaries). Returns (keys uint64, insert mask)."""
+    if label == "mixed":
+        keys = np.where(rng.random(k) < 0.75, rng.choice(pool, k),
+                        rng.integers(1, 2**64 - 2, k, dtype=np.uint64))
+    elif label == "one slot":
+        keys = rng.choice(same_slot[:max(3 * k // 4, 1)], k)
+    else:
+        reps = rng.integers(1, 41, k)
+        keys = np.repeat(rng.choice(pool, k), reps)[:k]
+    return keys, rng.random(k) > 0.1
+
+
+def tier_apply_edge_sweep(torch, rng):
+    """tier_apply held bit for bit against its plain version in both warm
+    layouts under none / lru / size at TA_EDGE_LANES lanes, on
+    `tier_apply_edge_lanes`, with eviction caps 0, 1 and K (one cap under
+    none), and with no spill tier, a spill tier whose runs are all empty,
+    one run, and 64 runs (empty ones, a run of one cell, a run that is all
+    tombstones). Then, in the level layout, at the widest plan of every
+    membership team width that those lanes leave out (`member_team`; on
+    an H100, 8, 4 and 1), mixed and one-slot lanes under lru and size,
+    with no spill and 64 runs. Counts the cases that reach each boundary
+    of the scan launch and of the team probes (each team width of each
+    layout that some plan width takes), and requires each count > 0."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.bits import from_u64
+    from repro_torch.core.layout import (bskiplist_layout, hash_slot,
+                                         skiplist_layout)
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.tier_apply.kernel import (TILE, member_slots,
+                                                       member_team,
+                                                       tier_apply_tiles)
+    from repro_torch.kernels.tier_apply.ops import sorted_lanes
+    from repro_torch.kernels.tier_apply.ref import tier_apply_planes_ref
+    sms = cuda.sm_count(torch.device(DEV))
+    slots = functools.partial(member_slots, torch.device(DEV).index or 0)
+    # warm: 3/4 of 4,096; hot: 64 slots of 16, most buckets full
+    wkeys = np.unique(rng.integers(1, 2**64 - 2, 3200, dtype=np.uint64))
+    wk = from_u64(wkeys[:3072], DEV)
+    warm, _, _ = dsl.insert_batch(dsl.skiplist_init(4096, device=DEV), wk,
+                                  wk ^ 0x5A5A)
+    hot = ht.fixed_init(TA_EDGE_SLOTS, TA_EDGE_BUCKET, device=DEV)
+    hk = from_u64(rng.integers(1, 2**64 - 2, 1500, dtype=np.uint64), DEV)
+    hot, _, _ = ht.fixed_insert(hot, hk, hk + 1)
+    meta = torch.from_numpy(rng.integers(0, 50, (TA_EDGE_SLOTS,
+                                                 TA_EDGE_BUCKET),
+                                         dtype=np.int32)).to(DEV)
+    sizes64 = [int(x) for x in rng.integers(0, 400, 64)]
+    sizes64[3], sizes64[5], sizes64[9] = 1, 0, 300
+    spills = {"no spill": (None, np.zeros(0, np.uint64)),
+              "empty runs": sorted_runs(torch, rng, [0] * 16, (), 64),
+              "1 run": sorted_runs(torch, rng, [2000], (), 100),
+              "64 runs": sorted_runs(torch, rng, sizes64, (9,), 100)}
+    cand = rng.integers(1, 2**64 - 2, 1 << 22, dtype=np.uint64)
+    slot0 = int(hash_slot(from_u64(cand[:1], DEV), TA_EDGE_SLOTS)[0])
+    same_slot = cand[(hash_slot(from_u64(cand, DEV), TA_EDGE_SLOTS)
+                      == slot0).cpu().numpy()]
+    hot_np = hot.keys.reshape(-1).cpu().numpy().view(np.uint64)
+    counts = dict(cases=0, key_run_straddles=0, slot_run_straddles=0,
+                  all_one_slot=0, cap_binds=0, spill_hits=0,
+                  hit_in_one_cell_run=0, preload_width=0)
+    one_cell = int(np.cumsum([0] + sizes64)[3])
+    # the widest plan of each level team width that some plan width takes
+    # and the sweep's widths miss
+    teams = {k: member_team(k, "level", sms, slots) for k in TA_EDGE_LANES}
+    wide = []
+    for w in (16, 8, 4, 2, 1):
+        k = sms * slots(w) // w
+        if member_team(k, "level", sms, slots) == w and w not in teams.values():
+            wide.append(k)
+            teams[k] = w
+    counts.update({f"level_team_{w}": 0 for w in set(teams.values())})
+    counts["block_team_32"] = 0
+    plan = [(sp_label, k, lanes, (("none", (k,)), ("lru", (k, 1, 0)),
+                                  ("size", (k, 1, 0))), ("level", "block"))
+            for sp_label in spills for k in TA_EDGE_LANES
+            for lanes in ("mixed", "one slot", "runs")]
+    plan += [(sp_label, k, lanes, (("lru", (1,)), ("size", (k,))),
+              ("level",))
+             for sp_label in ("no spill", "64 runs") for k in wide
+             for lanes in ("mixed", "one slot")]
+    lays = {"level": skiplist_layout(warm), "block": bskiplist_layout(warm)}
+    for sp_label, k, lanes, policies, layouts in plan:
+        sp, sp_keys = spills[sp_label]
+        pool = np.concatenate([wkeys[:3072], hot_np[hot_np != 2**64 - 1],
+                               sp_keys])
+        keys, mask = tier_apply_edge_lanes(torch, rng, lanes, k, pool,
+                                           same_slot)
+        if sp_label == "64 runs" and lanes == "mixed":
+            keys[0], mask[0] = sp_keys[one_cell], True
+        q, m = from_u64(keys, DEV), torch.from_numpy(mask).to(DEV)
+        _, ss, sk, _, sm, krs, srs = sorted_lanes(TA_EDGE_SLOTS, q, q ^ 0x77,
+                                                  m)
+        starts = torch.arange(TILE, max(k, TILE), TILE, device=DEV)
+        counts["key_run_straddles"] += int((krs[starts] < starts).any())
+        counts["slot_run_straddles"] += int((srs[starts] < starts).any())
+        counts["all_one_slot"] += int(k > TILE and bool((srs == 0).all()))
+        for policy, caps in policies:
+            evicted = {}
+            for cap_ev in caps:
+                me = torch.tensor([cap_ev], dtype=torch.int32, device=DEV)
+                for layout in layouts:
+                    args = (sk, ss, sm, krs, srs, hot.keys, meta,
+                            lays[layout], me, sp, policy)
+                    got = tier_apply_tiles(*args)
+                    want = tier_apply_planes_ref(*args)
+                    check(max_abs_err(torch, got, want) == 0,
+                          f"tier_apply edges: {layout}, {policy}, "
+                          f"{sp_label}, {k} {lanes} lanes, cap {cap_ev} "
+                          f"differs from its plain version")
+                    counts["cases"] += 1
+                    team = teams[k] if layout == "level" else 32
+                    counts[f"{layout}_team_{team}"] += 1
+                    counts["preload_width"] += int(k == TA_EDGE_LANES[-1])
+                    counts["spill_hits"] += int(want[1].sum())
+                    if sp_label == "64 runs":
+                        cell = sk == from_u64(sp_keys[one_cell:one_cell + 1],
+                                              DEV)
+                        counts["hit_in_one_cell_run"] += int(
+                            (want[1].bool() & cell).sum())
+                    evicted[cap_ev] = int(want[5].sum())
+            if len(caps) == 3 and evicted[k] > 1:
+                counts["cap_binds"] += int(evicted[1] == 1
+                                           and evicted[0] == 0)
+    print("tier_apply edges: bit-identical in " + json.dumps(counts),
+          flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"tier_apply edges: no case reaches {name}")
+
+
+def pq_edge_heaps(torch, rng):
+    """Heaps for pq_pop's edges, each (label, state): at each of
+    PQ_EDGE_CAPS cells, one nearly full (its last live cell in the last
+    chunk), one with a tombstone run of 3/5 of it at its head (over many
+    chunks and scan tiles), and one with every cell tombstoned."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core.bits import from_u64
+    for cap in PQ_EDGE_CAPS:
+        n = cap - 7
+        keys = from_u64(np.unique(rng.integers(1, 2**63, n + 64,
+                                               dtype=np.uint64))[:n], DEV)
+        s, _, _ = dsl.insert_batch(dsl.skiplist_init(cap, device=DEV), keys,
+                                   keys + 5)
+        yield f"C {cap} full", s
+        live = torch.arange(cap, device=DEV) < s.n_term
+        head = live & (torch.arange(cap, device=DEV) < 3 * cap // 5)
+        yield (f"C {cap} head run", s._replace(
+            term_mark=s.term_mark | head, n_marked=head.sum()))
+        yield (f"C {cap} all tombstoned", s._replace(
+            term_mark=s.term_mark | live, n_marked=s.n_term))
+
+
+def pq_stop_expected(torch, ranks, mask, lay, chunk):
+    """The stop index the scan must publish: the first chunk whose
+    inclusive live count reaches want_max, every chunk's last one when
+    want_max exceeds the live total, -1 when it is 0."""
+    want = ranks.long() + 1
+    want = torch.where((mask != 0) & (want >= 1), want, 0)
+    wm = int(want.max()) if want.numel() else 0
+    tk, tm = lay.term_keys, lay.term_mark
+    live = ((tm == 0) & (tk != -1)).long()
+    chunks = -(-tk.numel() // chunk)
+    per = torch.zeros(chunks * chunk, dtype=torch.long, device=tk.device)
+    per[:tk.numel()] = live
+    incl = torch.cumsum(per.reshape(chunks, chunk).sum(1), 0)
+    if wm == 0:
+        return -1, wm, incl
+    reach = (incl >= wm).nonzero()
+    return (int(reach[0]) if reach.numel() else chunks - 1), wm, incl
+
+
+def pq_edge_sweep(torch, rng):
+    """pq_pop held bit for bit against its plain version on
+    `pq_edge_heaps` at PQ_EDGE_LANES lanes, rank sets: no lane masked in,
+    every masked-in rank -1, want_max in the first chunk, in the last
+    chunk, exactly at a chunk's end, and ranks past the live total; the
+    stop index the scan published (read from the wrapper's scratch) equals
+    `pq_stop_expected`. Counts the cases that reach each boundary and
+    requires each count > 0."""
+    from repro_torch.core.layout import skiplist_layout
+    from repro_torch.kernels.pq_pop import kernel as pq
+    counts = dict(cases=0, nothing_needed=0, stop_first_chunk=0,
+                  stop_last_chunk=0, stop_on_chunk_end=0, past_total=0,
+                  all_tombstoned=0, head_run_over_tiles=0)
+    for label, st in pq_edge_heaps(torch, rng):
+        lay = skiplist_layout(st)
+        total = int(st.n_term - st.n_marked)
+        for t in PQ_EDGE_LANES:
+            _, _, incl = pq_stop_expected(
+                torch, torch.zeros(1, dtype=torch.int32, device=DEV),
+                torch.ones(1, dtype=torch.int8, device=DEV), lay,
+                pq.PQ_CHUNK)
+            ends = incl[(incl > 0) & (incl < total)]
+            end = int(ends[len(ends) // 2]) if ends.numel() else 1
+            base = torch.from_numpy(rng.integers(0, max(total, 1), t)
+                                    .astype(np.int32)).to(DEV)
+            sets = {"no lane": (base, 0.0), "all -1": (base * 0 - 1, 1.0),
+                    "first chunk": (base.clamp(max=3), 0.9),
+                    "last chunk": (base.clamp(min=max(total - 1, 0)), 0.9),
+                    "chunk end": (base.clamp(max=end - 1), 0.9),
+                    "past total": (base + total // 2 + 1, 0.9)}
+            for name, (ranks, share) in sets.items():
+                ranks = ranks.to(torch.int32).contiguous()
+                mask = torch.from_numpy(rng.random(t) < share).to(DEV).to(
+                    torch.int8)
+                if share > 0:
+                    mask[0] = 1
+                    if name == "chunk end":
+                        ranks[0] = end - 1
+                got = pq.pq_pop_tiles(ranks, mask, lay)
+                check(max_abs_err(torch, got, pq.pq_pop_ref(ranks, mask, lay))
+                      == 0, f"pq_pop edges: {label}, T {t}, {name} differs "
+                      f"from its plain version")
+                want_stop, wm, _ = pq_stop_expected(torch, ranks, mask, lay,
+                                                    pq.PQ_CHUNK)
+                if ranks.is_cuda:
+                    entry = pq._SCRATCH[(ranks.device.index, torch.cuda
+                                         .current_stream().cuda_stream)]
+                    w = int(entry[0][pq.STOP_WORD]) & ((1 << 64) - 1)
+                    stop = ((w & 0xFFFFFFFF) - 1 if (w >> 34) == entry[1]
+                            else None)
+                    check(stop == want_stop, f"pq_pop edges: {label}, T "
+                          f"{t}, {name}: stop {stop}, expected {want_stop}")
+                chunks = incl.numel()
+                counts["cases"] += 1
+                counts["nothing_needed"] += int(want_stop == -1)
+                counts["stop_first_chunk"] += int(want_stop == 0)
+                counts["stop_last_chunk"] += int(want_stop == chunks - 1)
+                counts["stop_on_chunk_end"] += int(
+                    want_stop >= 0 and int(incl[want_stop]) == wm)
+                counts["past_total"] += int(wm > total)
+                counts["all_tombstoned"] += int(total == 0 and wm > 0)
+                counts["head_run_over_tiles"] += int(
+                    "head run" in label and want_stop
+                    >= 2 * pq.PQ_TILE)
+    print("pq_pop edges: bit-identical in " + json.dumps(counts), flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"pq_pop edges: no case reaches {name}")
+
+
 def kernel_phase(torch, seed: int):
     """Returns the rows of the ten kernels (the tier kernels in the level
     layout); the block-layout rows of tier_find and tier_apply are
@@ -924,6 +1476,8 @@ def kernel_phase(torch, seed: int):
     # the edge sweeps draw from their own generators, so every row's
     # inputs stay those of the seed alone
     walk_edge_sweep(torch, np.random.default_rng([seed, 1]))
+    tier_apply_edge_sweep(torch, np.random.default_rng([seed, 3]))
+    pq_edge_sweep(torch, np.random.default_rng([seed, 4]))
     rng = np.random.default_rng(seed)
     keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
     torch.cuda.synchronize()
@@ -1015,14 +1569,9 @@ def kernel_phase(torch, seed: int):
                 continue
             check(all(int(got[i].sum()) > 0 for i in (0, 2, 4)),
                   "tier_find hits every tier")
-            reads = Reads()
-            walk = walk_reads if warm_layout == "level" else block_reads
-            replay_matches(got, bucket_reads(torch, reads, q, slots,
-                                             st.hot.keys, False)
-                           + walk(torch, reads, q, wl)
-                           + spill_reads(torch, reads, q, sp), "tier_find")
-            table_bytes = 4 * (len(wl.offsets) if warm_layout == "level"
-                               else 0)
+            bnd, replayed = tier_find_bound(torch, q, slots, st.hot.keys,
+                                            wl, sp, warm_layout)
+            replay_matches(got, replayed, "tier_find")
             (rows if warm_layout == "level" else block_rows)["tier_find"] = \
                 dict(max_abs_err=err,
                      ms=median_ms(torch, lambda: tier_find_tiles(
@@ -1033,8 +1582,7 @@ def kernel_phase(torch, seed: int):
                      dispatch_ms=median_ms(torch, lambda: exec_.tier_find(
                          st.hot, st.cold, st.spill, q, mode="gpu",
                          warm_layout=warm_layout)),
-                     bound=bound(torch, reads, T * (8 + 4 + 3 * (1 + 4))
-                                 + table_bytes + 4 * sp.run_off.numel()))
+                     bound=bnd)
         # raw outputs: the two walks agree on every hit; a KEY_INF query's
         # raw warm bit is the layout's own (the glue masks it)
         lv, bk = outs["level"], outs["block"]
@@ -1075,22 +1623,11 @@ def kernel_phase(torch, seed: int):
                     outs[warm_layout] = got
                     if policy != "lru" or sp is None or cap_ev != T:
                         continue
-                    mq = torch.where(sm != 0, sk, -1)
-                    reads = Reads()
-                    f_hot, _ = bucket_reads(torch, reads, mq, ss,
-                                            st.hot.keys, True)
-                    walk = (walk_reads if warm_layout == "level"
-                            else block_reads)
-                    f_warm, _ = walk(torch, reads, mq, wl)
-                    spill_reads(torch, reads, mq, sp)
-                    check(torch.equal(got[0].bool(), f_warm.bool()
-                                      & (f_hot == 0) & (sm != 0)),
+                    bnd, in_warm = tier_apply_bound(
+                        torch, sk, ss, sm, st.hot.keys, st.hot_meta, wl, sp,
+                        warm_layout)
+                    check(torch.equal(got[0].bool(), in_warm),
                           "tier_apply: the bound's replay differs")
-                    cells = (ss.long()[:, None] * st.hot.bucket
-                             + torch.arange(st.hot.bucket, device=DEV))
-                    reads.add("meta", 4, cells)
-                    table_bytes = 4 * (len(wl.offsets)
-                                       if warm_layout == "level" else 0)
                     (rows if warm_layout == "level"
                      else block_rows)["tier_apply"] = dict(
                         max_abs_err=err,
@@ -1102,9 +1639,7 @@ def kernel_phase(torch, seed: int):
                             st.hot, st.hot_meta, st.clock, st.cold, st.spill,
                             q, vals, mask, policy, me, mode="gpu",
                             warm_layout=warm_layout)),
-                        bound=bound(torch, reads, T * (8 + 4 + 1 + 4 + 4)
-                                    + T * (6 + 3 * 4) + 4 + table_bytes
-                                    + 4 * sp.run_off.numel()))
+                        bound=bnd)
                 check(max_abs_err(torch, outs["block"], outs["level"]) == 0,
                       f"tier_apply ({policy}, {label}, cap {cap_ev}): the "
                       f"block layout differs from the level layout")
@@ -1115,6 +1650,8 @@ def kernel_phase(torch, seed: int):
                       f"bit-identical, both layouts (placed "
                       f"{int(got[2].sum())}, evict {int(got[5].sum())})",
                       flush=True)
+    shapes = tier_shapes(torch, np.random.default_rng([seed, 5]), keys, t3,
+                         t2)
     del flat, table, t3, t2
     torch.cuda.empty_cache()
 
@@ -1160,6 +1697,8 @@ def kernel_phase(torch, seed: int):
             heap, ranks, pop, mode="gpu")),
         bound=bound(torch, reads, T * (4 + 1 + 1 + 4)
                     + 4 * len(lay.offsets)))
+    pq_rows = pq_shapes(torch, np.random.default_rng([seed, 6]), heap, ranks,
+                        m8)
     del heap, lay
     torch.cuda.empty_cache()
 
@@ -1181,6 +1720,7 @@ def kernel_phase(torch, seed: int):
                                          for k, v in block_rows.items()]:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print_row(name, r, r.pop("lanes", T))
+    print_shapes(shapes, pq_rows)
     return rows
 
 
@@ -1993,6 +2533,30 @@ def leaves_equal(torch, a, b) -> bool:
         for x, y in zip(la, lb))
 
 
+# launches a wrapper call makes, and the launches by (kernel, call shape)
+# harvested from every cell of the main path and the serving and hymba
+# phases (`harvest_shapes`)
+LAUNCHES_A_CALL = {"tier_apply": 2, "tier_find": 1, "pq_pop": 2}
+SHAPE_LAUNCHES = collections.Counter()
+
+
+def harvest_shapes(cuda) -> dict:
+    """The launches by call shape since the counts were last set to 0,
+    added to SHAPE_LAUNCHES; each kernel's must be whole calls."""
+    got = dict(cuda.SHAPE_LAUNCHES)
+    for (name, shape), n in got.items():
+        per = LAUNCHES_A_CALL[name.split("/")[0]]
+        check(n % per == 0, f"{name} at {shape}: {n} launches, not whole "
+              f"calls of {per}")
+    SHAPE_LAUNCHES.update(got)
+    return got
+
+
+def calls_by_shape(shapes) -> dict:
+    return {f"{name}@{shape}": n // LAUNCHES_A_CALL[name.split("/")[0]]
+            for (name, shape), n in sorted(shapes.items())}
+
+
 def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
     """Drive one cell: every plan through a `StoreEngine` per exec mode,
     gpu == torch per plan and on the final state, `on_plan(p, ok, vals,
@@ -2035,6 +2599,15 @@ def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
                 res["gpu"][1].cpu().numpy().view(np.uint64), states["gpu"])
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    # tier_apply and pq_pop: one call on every plan, in launches a call
+    shapes = harvest_shapes(cuda)
+    plans_of = collections.Counter(ops.shape[0] for _, ops, _, _ in dev_plans)
+    for (name, shape), n in shapes.items():
+        if name.startswith("tier_apply") or name == "pq_pop":
+            width = shape if isinstance(shape, int) else shape[0]
+            check(n == LAUNCHES_A_CALL[name.split("/")[0]] * plans_of[width],
+                  f"{label}: {n} {name} launches at {shape} on "
+                  f"{plans_of[width]} plans of {width} lanes")
     if "torch" in modes:
         check(leaves_equal(torch, states["gpu"], states["torch"]),
               f"{label}: final state gpu != torch")
@@ -2048,6 +2621,7 @@ def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
     row["dispatches_per_plan"] = {t: dict(zip(("n", "probe", "update"), v))
                                   for t, v in disp.items()}
     row["launches"] = launches
+    row["calls_by_shape"] = calls_by_shape(shapes)
     print(f"backend {label}: " + json.dumps(row), flush=True)
     print(f"backend {label}: {time.perf_counter() - t_be:.3f} s", flush=True)
     return row, states, stats, launches
@@ -2351,6 +2925,7 @@ def serving_phase(torch, seed: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    harvest_shapes(cuda)
     print(f"serving: replay {wall:.3f} s, {engine.steps} decode steps, "
           f"launches {json.dumps(launches)}", flush=True)
 
@@ -2621,6 +3196,7 @@ def hymba_phase(torch, seed: int):
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    harvest_shapes(cuda)
     peak = torch.cuda.max_memory_allocated() / 2**30
     gen = torch.stack(gen, 1)
     print(f"hymba: prefill {t_pre:.3f} s, {HYMBA_NEW} decode steps "
@@ -2769,6 +3345,8 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+    print("calls by shape over the main path, serving and hymba: "
+          + json.dumps(calls_by_shape(SHAPE_LAUNCHES)), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

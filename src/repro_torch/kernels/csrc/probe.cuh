@@ -4,9 +4,11 @@
 // `bucket_probe` (kernels/hash_probe), `level_walk` (kernels/skiplist_search),
 // `block_walk` (kernels/bskiplist_walk) and `spill_run_probe`
 // (kernels/tier_find) are each written once and reused by the fused tier
-// kernels and the pq pop. Keys arrive as int64 bit patterns and are
-// compared here as unsigned 64-bit integers: the card has native u64 compares,
-// so the TPU's (hi, lo) u32 split does not exist on this side.
+// kernels and the pq pop. The team bodies at the end (`team_bucket_row`,
+// `team_spill_probe`, with `block_walk<32>`) serve one query with a team of
+// lanes and give the same results. Keys arrive as int64 bit patterns and
+// are compared here as unsigned 64-bit integers: the card has native u64
+// compares, so the TPU's (hi, lo) u32 split does not exist on this side.
 //
 // Every body reproduces the reference conventions exactly:
 //   * the first-true argmax of an all-false row is 0;
@@ -138,14 +140,23 @@ __device__ __forceinline__ int node_count_lt(const u64* node, int start,
   static_assert(TEAM == 1 || TEAM == 32, "a thread or a warp");
   const int lane = TEAM == 1 ? 0 : (threadIdx.x & 31);
   int n = 0;
+  if constexpr (TEAM == 1) {
 #pragma unroll 4
-  for (int j = lane; j < BSKIP_B; j += TEAM) {
-    int c = start + j;
-    bool lt = c < cap && node[c] < q;
-    if (TEAM == 1)
-      n += lt ? 1 : 0;
-    else
-      n += __popc(__ballot_sync(0xffffffffu, lt));
+    for (int j = 0; j < BSKIP_B; ++j) {
+      int c = start + j;
+      n += c < cap && node[c] < q ? 1 : 0;
+    }
+  } else {
+    // all of the lane's BSKIP_B / TEAM reads in one round
+    bool lt[BSKIP_B / TEAM];
+#pragma unroll
+    for (int r = 0; r < BSKIP_B / TEAM; ++r) {
+      int c = start + lane + r * TEAM;
+      lt[r] = c < cap && node[c] < q;
+    }
+#pragma unroll
+    for (int r = 0; r < BSKIP_B / TEAM; ++r)
+      n += __popc(__ballot_sync(0xffffffffu, lt[r]));
   }
   return n;
 }
@@ -252,4 +263,180 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   *total = warp_sums[nw - 1];
   __syncthreads();
   return excl;
+}
+
+// ---------------------------------------------------------------------------
+// Team probe bodies: TEAM consecutive lanes of a warp (a power of two, 1 to
+// 32) serve one query together, so a probe's independent reads go out in
+// one round instead of one after another. Every lane of the team calls
+// them, with the same query, and every lane gets the result. Each gives its
+// one-thread counterpart's result exactly, at every TEAM.
+//
+// Their ballots and shuffles run over all the warp's live lanes (`warp`),
+// never the team's alone: warp-synchronous calls whose masks differ from
+// team to team run the warp's teams one after another (on the H100 a warp
+// of 32 one-lane teams ran 4.3x slower so). So every live lane of the warp
+// must reach each body, a team with nothing to probe passing `active`
+// false.
+// ---------------------------------------------------------------------------
+
+#define MAX_BUCKET 16   // columns of a bucket row (the wrappers refuse more)
+
+template <int TEAM>
+struct Team {
+  static_assert(TEAM >= 1 && TEAM <= 32 && (TEAM & (TEAM - 1)) == 0,
+                "a power of two lanes of one warp");
+  // columns of a bucket row a lane holds: c = lane + j * TEAM, j < COLS
+  static constexpr int COLS = (MAX_BUCKET + TEAM - 1) / TEAM;
+  static constexpr unsigned BITS = 0xffffffffu >> (32 - TEAM);
+  int lane;        // 0 .. TEAM - 1
+  int base;        // the team's first lane in its warp
+  unsigned warp;   // the warp's live lanes (whole teams)
+};
+
+// Every lane of the warp must call it; `live`: the lane's team serves a
+// query (the same for the whole team).
+template <int TEAM>
+__device__ __forceinline__ Team<TEAM> this_team(bool live) {
+  Team<TEAM> t;
+  t.lane = threadIdx.x & (TEAM - 1);
+  t.base = threadIdx.x & 31 & ~(TEAM - 1);
+  t.warp = __ballot_sync(0xffffffffu, live);
+  return t;
+}
+
+// Bit j = p on team lane j.
+template <int TEAM>
+__device__ __forceinline__ unsigned team_ballot(const Team<TEAM>& t, bool p) {
+  return (__ballot_sync(t.warp, p) >> t.base) & Team<TEAM>::BITS;
+}
+
+// The bucket row of `slot` (clipped to [0, m - 1]) in one round: each lane
+// reads its columns (b <= MAX_BUCKET). Returns the columns holding q (bit
+// j; `bucket_probe` hits iff it is non-zero, at its lowest bit); *empty =
+// the KEY_INF cells.
+template <int TEAM>
+__device__ __forceinline__ unsigned team_bucket_row(u64 q, int slot,
+                                                    const u64* keys, int m,
+                                                    int b, const Team<TEAM>& t,
+                                                    unsigned* empty) {
+  const u64* row = keys + (long long)clampi(slot, 0, m - 1) * b;
+  u64 kj[Team<TEAM>::COLS];
+#pragma unroll
+  for (int j = 0; j < Team<TEAM>::COLS; ++j) {
+    const int c = t.lane + j * TEAM;
+    kj[j] = c < b ? row[c] : 0;
+  }
+  unsigned hits = 0, emp = 0;
+#pragma unroll
+  for (int j = 0; j < Team<TEAM>::COLS; ++j) {
+    const bool in = t.lane + j * TEAM < b;
+    hits |= team_ballot(t, in && kj[j] == q) << (j * TEAM);
+    emp |= team_ballot(t, in && kj[j] == KEY_INF_U64) << (j * TEAM);
+  }
+  *empty = emp;
+  return hits;
+}
+
+// The runs of [runs + 1] offsets that hold cells, in run order, into
+// shared memory (`live`, *n_live): an empty run never matches, so the team
+// probe searches only these. Every thread of the block must call it.
+__device__ __forceinline__ void load_runs(int* roff, int* live, int* n_live,
+                                          const int* run_off, int runs) {
+  load_table(roff, run_off, runs + 1);
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int r = 0; r < runs; ++r)
+      if (roff[r] < roff[r + 1]) live[n++] = r;
+    *n_live = n;
+  }
+  __syncthreads();
+}
+
+// Pivot u (< g) of a k-ary search round over [lo, lo + n), n > g: near
+// lo + (u + 1) n / (g + 1), in float (a 64-bit division a pivot cost more
+// than the round's loads). Any positions that do not decrease in u and
+// stay inside the interval give the same search result: the narrowing
+// reads the same positions back, and the pivots below q and those at or
+// above it never share a position.
+__device__ __forceinline__ int kary_pivot(int lo, int n, int u, float part) {
+  return lo + min((int)((float)(u + 1) * ((float)n * part)), n - 1);
+}
+
+// Cold-tier probe by a team: `spill_probe`'s result exactly (the first live
+// match in run order wins; a miss reports the clipped searchsorted-left
+// position in run 0). The non-empty runs are split over the team: a group
+// of g = TEAM / G lanes a run, G the power of two >= n_live (at most TEAM;
+// more runs go in passes). A group runs a (g + 1)-ary search for its run's
+// searchsorted-left position: each round its lanes read g spaced pivots of
+// the open interval [lo, hi), and the count of pivots below q (a prefix of
+// them, the run being sorted) narrows the interval to one of the g + 1
+// parts; an interval of at most g cells is read whole. A 2^19-cell run
+// takes 12 rounds at g = 2 (16 lanes, 5 to 8 runs), against 19 for a
+// binary search (g = 1, which a team of 4 runs on 4 runs at once and a
+// team of 1 on one run after another), and the runs are searched side by
+// side. A team with `active` false finds nothing.
+template <int TEAM>
+__device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
+                                                 const u64* sp_keys,
+                                                 const int8_t* sp_dead,
+                                                 const int* run_off,
+                                                 const int* live, int n_live,
+                                                 int s, const Team<TEAM>& t,
+                                                 int* cell) {
+  int groups = 1;
+  while (groups < n_live && groups < TEAM) groups <<= 1;
+  const int g = TEAM / groups;
+  const int grp = t.lane / g;
+  const int sub = t.lane - grp * g;
+  const unsigned gbits = 0xffffffffu >> (32 - g);
+  const float part = 1.0f / (float)(g + 1);
+  // an empty run 0 leaves its search at its start
+  int miss = clampi(run_off[0], 0, s - 1);
+  bool found = false;
+  int at = 0;
+  for (int r0 = 0; r0 < n_live; r0 += groups) {
+    if (!__any_sync(t.warp, active && !found)) break;
+    const bool act = active && !found && r0 + grp < n_live;
+    const int r = act ? live[r0 + grp] : 0;
+    int lo = act ? run_off[r] : 0;
+    const int end = act ? run_off[r + 1] : 0;
+    int hi = end;
+    while (__any_sync(t.warp, lo < hi)) {
+      const int n = hi - lo;
+      const bool open = lo < hi;
+      const bool whole = n <= g;
+      const int p = whole ? lo + sub : kary_pivot(lo, n, sub, part);
+      const bool lt = open && (!whole || sub < n) && sp_keys[p] < q;
+      const int cnt = __popc((team_ballot(t, lt) >> (grp * g)) & gbits);
+      if (open) {
+        if (whole) {
+          lo += cnt;
+          hi = lo;
+        } else {
+          // the part after pivot cnt - 1 and before pivot cnt
+          const int nlo = cnt > 0 ? kary_pivot(lo, n, cnt - 1, part) + 1 : lo;
+          if (cnt < g) hi = kary_pivot(lo, n, cnt, part);
+          lo = nlo;
+        }
+      }
+    }
+    const int pos = clampi(lo, 0, s - 1);
+    if (r0 == 0) {
+      const int pos0 = __shfl_sync(t.warp, pos, 0, TEAM);
+      if (live[0] == 0) miss = pos0;   // run 0 holds cells
+    }
+    const bool hit = act && sub == 0 && lo < end && sp_keys[pos] == q &&
+                     sp_dead[pos] == 0;
+    const unsigned hits = team_ballot(t, hit);
+    // the first group that hit: the earliest run of this pass
+    const int hpos = __shfl_sync(t.warp, pos, hits ? __ffs(hits) - 1 : 0,
+                                 TEAM);
+    if (hits) {
+      found = true;
+      at = hpos;
+    }
+  }
+  *cell = found ? at : miss;
+  return found;
 }

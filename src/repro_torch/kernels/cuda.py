@@ -21,6 +21,7 @@ which walk they took.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -52,12 +53,14 @@ _SIGNATURES = {
                          _P, _P],
     "tier_apply_member_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                                  _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
-                                 _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                                 _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _P],
+    "tier_apply_member_slots": [_I],
     "tier_apply_scan_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _P, _P, _P],
+                               _P, _P, _P, _P, _P],
     "bskiplist_walk_launch": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
-                      _I, _P],
+                      _I, _I, _P, _P, _I, _P],
     "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
@@ -70,12 +73,16 @@ _SIGNATURES = {
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}/{lay}": 0 for name in ("tier_find", "tier_apply")
                  for lay in WARM_LAYOUTS})
+# the same launches by call shape, for the wrappers that give one:
+# {(name or name/layout, shape): count}
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SHAPE_LAUNCHES.clear()
 
 
 def _nvcc() -> str:
@@ -143,18 +150,24 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, fn: str, *args, layout: str | None = None) -> None:
+def launch(kernel: str, fn: str, *args, layout: str | None = None,
+           shape=None) -> None:
     """Call launcher `fn` of kernel library `kernel` on the current stream
     and count one launch of `kernel` (and of `kernel/layout` when a warm
-    layout is given); raise on a launch error."""
+    layout is given, and in `SHAPE_LAUNCHES` under the call's `shape` when
+    one is given); raise on a launch error."""
     lib = library(kernel)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
+    name = kernel
     if layout is not None:
-        LAUNCHES[f"{kernel}/{layout}"] += 1
+        name = f"{kernel}/{layout}"
+        LAUNCHES[name] += 1
+    if shape is not None:
+        SHAPE_LAUNCHES[(name, shape)] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -41,5 +41,5 @@ def tier_find_tiles(q: torch.Tensor, slots: torch.Tensor,
                 cuda.ptr(sp.run_off), runs,
                 0 if spill is None else spill.keys.shape[0],
                 *[cuda.ptr(o) for o in outs[:4]],
-                *[cuda.ptr(o) for o in sp_out], layout=layout)
+                *[cuda.ptr(o) for o in sp_out], layout=layout, shape=t)
     return tuple(outs)
