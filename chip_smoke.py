@@ -11,10 +11,18 @@ is non-zero and no result line is printed):
    (`nvidia-smi`), build the ten CUDA kernels from `src/repro_torch/
    kernels/csrc/` (one `nvcc` per source, in parallel). TF32 is off.
 2. Kernels: first the edge sweep of the shared level walk: skiplist_search,
-   pq_pop, tier_find and tier_apply in the level layout, bit for bit against their plain versions on skiplists of
+   pq_pop, tier_find and tier_apply in the level layout (tier_find also
+   in the block layout, at every team width of each), bit for bit
+   against their plain versions on skiplists of
    16, 100 and 4,096 cells (empty, 3/4 full, every key tombstoned) at 1,
    33 and 4,097 lanes (queries 0, 2^64 - 2, KEY_INF and past the last
-   key). Then the edge sweeps of the two redesigned kernels, bit for bit:
+   key). Then the edge sweeps of the four kernels a team runs, bit for
+   bit: tier_find in both layouts at 1, 777 and 4,096 lanes and at the
+   widest plan of every team width its rule picks, with no spill tier,
+   a spill tier of empty runs, one run and 64 runs (a run of one cell, a
+   run of tombstones), on a warm tier with a ragged last node;
+   bskiplist_walk on the walk's edge states at 1, 33 and 4,097 lanes and
+   at the widest plan of every team width its rule picks;
    tier_apply in both layouts under none / lru / size at 1, 777 and
    65,536 lanes (mixed keys, every lane in one slot, key and slot runs
    across the scan's tiles), eviction caps 0, 1 and K, with no spill
@@ -76,9 +84,12 @@ is non-zero and no result line is printed):
    timed at both shapes, the decode time beside its own bound.
    tier_apply and tier_find are also timed at every plan width of the
    main path (4,096-lane workload and 65,536-lane preload plans, both
-   layouts, tier_apply with and without spill), and pq_pop at its three
-   shapes (a pq workload plan, a preload plan with no pop lane, a served
-   pop plan on the scheduler's 1,024-entry heap), each launch apart
+   layouts, tier_apply with and without spill; the serving prefix
+   cache's 9- and 64-lane plans on a 1,024-cell stack with spill), pq_pop
+   at its three shapes (a pq workload plan, a preload plan with no pop
+   lane, a served pop plan on the scheduler's 1,024-entry heap), and
+   skiplist_search, bskiplist_walk, hash_probe and splitorder_probe at
+   4,096 and 65,536 lanes beside their library calls, each launch apart
    (`split_ms`), beside each shape's bound (`shapes_only` runs these
    timings alone, on whichever port `repro_torch` imports).
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
@@ -138,14 +149,15 @@ is non-zero and no result line is printed):
    the torch-mode prefill one token short must exceed) and every gpu
    token the argmax of a torch-mode teacher-forced `forward` unless its top-2
    margin is below 1e-3.
-6. The calls by shape of tier_apply, tier_find and pq_pop over phases
-   3-5, a `kernels` JSON line, then the last line
+6. The calls by shape of the store kernels over phases 3-5, a `kernels`
+   JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import functools
 import gc
 import json
@@ -495,9 +507,10 @@ def spill_reads(torch, reads: Reads, q, sp):
 
 
 def block_reads(torch, reads: Reads, q, lay):
-    """Replay of `block_walk` (csrc/probe.cuh) on the block-major view.
-    Its outputs, held against the kernel, come from the kernel's own count
-    of each 128-key node's entries below q. The cells it records for the
+    """Replay of the block walk (csrc/probe.cuh, `TeamBlockWalk`'s node
+    step) on the block-major view. Its outputs, held against the kernel,
+    come from a whole count of each 128-key node's entries below q, as a
+    warp's node step makes it. The cells it records for the
     bound are the ones a binary search of each node reads: every node row
     is sorted (the terminal keys are, tombstones staying in place and the
     `KEY_INF` padding at the end, and each index row takes every B-th
@@ -630,16 +643,31 @@ def build_kernel_inputs(torch, rng):
     table = ht.fixed_init(C // 16, 16, device=DEV)
     table, _, _ = ht.fixed_insert(table, tk, tk + 1)
 
-    half = C // 2
-    t3 = tiers.TIERED3.init(half, device=DEV)
+    t3 = build_tier_stack(torch, rng, tk, C // 2)
+    hot_n = t3.hot.keys.numel() * 9 // 10
+    t2 = tiers.HASH_SKIPLIST.init(C, device=DEV)
+    hot2, _, _ = ht.fixed_insert(t2.hot, tk[:hot_n], tk[:hot_n] + 2)
+    t2 = t2._replace(hot=hot2, hot_meta=t3.hot_meta.repeat(2, 1), cold=flat)
+    return keys, flat, table, t3, t2
+
+
+def build_tier_stack(torch, rng, tk, cap):
+    """A tiered3 stack of capacity `cap` filled from the keys `tk` (at
+    least 1.3 cap of them): the hot tier 9/10 full, the warm tier 7/8 full,
+    six spill runs of cap / 16 cells with a tenth of the first run
+    tombstoned, seeded lru stamps."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core import hashtable as ht
+    from repro_torch.store import tiers
+    t3 = tiers.TIERED3.init(cap, device=DEV)
     hot_n = t3.hot.keys.numel() * 9 // 10
     hot, _, _ = ht.fixed_insert(t3.hot, tk[:hot_n], tk[:hot_n] + 2)
-    warm = dsl.skiplist_init(half, device=DEV)
-    warm, _, _ = dsl.insert_batch(warm, tk[hot_n:hot_n + half * 7 // 8],
-                                  tk[hot_n:hot_n + half * 7 // 8] + 3)
+    warm = dsl.skiplist_init(cap, device=DEV)
+    warm, _, _ = dsl.insert_batch(warm, tk[hot_n:hot_n + cap * 7 // 8],
+                                  tk[hot_n:hot_n + cap * 7 // 8] + 3)
     sp = t3.spill
-    run = half // 16
-    base = hot_n + half * 7 // 8
+    run = cap // 16
+    base = hot_n + cap * 7 // 8
     for r in range(6):
         part = tk[base + r * run: base + (r + 1) * run]
         sp, _ = tiers.spill_append(sp, part, part + 4,
@@ -649,11 +677,7 @@ def build_kernel_inputs(torch, rng):
                                            device=DEV))
     meta = torch.from_numpy(rng.integers(0, 64, tuple(hot.keys.shape),
                                          dtype=np.int32)).to(DEV)
-    t3 = t3._replace(hot=hot, hot_meta=meta, cold=warm, spill=sp)
-    t2 = tiers.HASH_SKIPLIST.init(C, device=DEV)
-    hot2, _, _ = ht.fixed_insert(t2.hot, tk[:hot_n], tk[:hot_n] + 2)
-    t2 = t2._replace(hot=hot2, hot_meta=meta.repeat(2, 1), cold=flat)
-    return keys, flat, table, t3, t2
+    return t3._replace(hot=hot, hot_meta=meta, cold=warm, spill=sp)
 
 
 def mixed_keys(rng, keys, width):
@@ -699,7 +723,9 @@ def print_shape(name, shape, r):
     print(f"kernel {name} at {shape}: {r['ms']:.6f} ms/call (launches "
           f"{', '.join(f'{x:.6f}' for x in r['launch_ms'])} ms), bound "
           f"{r['bound_ms']:.7f} ms by {r['bound_by']}, "
-          f"{r['ms'] / r['bound_ms']:.1f}x the bound", flush=True)
+          f"{r['ms'] / r['bound_ms']:.1f}x the bound"
+          + (f", library {r['library_ms']:.6f} ms"
+             if r.get("library_ms") is not None else ""), flush=True)
 
 
 def print_row(name, r, lanes):
@@ -799,25 +825,25 @@ def shape_row(torch, fn, bnd):
                 bound_ms=bnd[0], bound_by=bnd[1])
 
 
-def print_shapes(tier_rows, pq_rows):
+def print_shapes(tier_rows, pq_rows, probe_rows):
     """The `kernel` lines of every shape the main path calls tier_apply,
-    tier_find and pq_pop with."""
+    tier_find and pq_pop with, and of the single probes at both plan
+    widths (`probe_rows`)."""
     for (kern, layout, label, lanes), r in tier_rows.items():
         print_shape(f"{kern}/{layout}", f"{label}, {lanes} lanes", r)
     for label, r in pq_rows.items():
         print_shape("pq_pop", label, r)
+    for (name, label), r in probe_rows.items():
+        print_shape(name, label, r)
 
 
-def tier_shapes(torch, rng, keys, t3, t2):
-    """tier_apply (policy lru, eviction cap = the lanes) and tier_find at
-    the main path's two plan widths: a workload plan of WL_LANES lanes (3/4
-    stored keys, 95% of the lanes inserting) and a preload plan of
-    PRELOAD_LANES fresh keys, every lane inserting; both warm layouts;
-    tier_apply with spill (tiered3) and without (hash+skiplist), tier_find
-    with spill. Each is checked against its plain version first. A block
-    row's bound is at most the level row's (`kernel_phase`). Returns the
-    rows keyed (kernel, layout, spill label, lanes)."""
-    from repro_torch.core.bits import from_u64
+def tier_rows(torch, rows, st, label, q, vals, mask, layouts):
+    """tier_apply (policy lru, eviction cap = the lanes) and, where the
+    stack has a spill tier, tier_find on the lanes `q` of stack `st` in
+    each of `layouts` (the level layout first), each checked against its
+    plain version and its bound's replay, then timed (`shape_row`) into
+    `rows` under (kernel, layout, label, lanes). A block row's bound is at
+    most the level row's (`kernel_phase`)."""
     from repro_torch.core.layout import (bskiplist_layout, hash_slot,
                                          skiplist_layout, spill_layout)
     from repro_torch.kernels.tier_apply.kernel import tier_apply_tiles
@@ -825,6 +851,69 @@ def tier_shapes(torch, rng, keys, t3, t2):
     from repro_torch.kernels.tier_apply.ref import tier_apply_planes_ref
     from repro_torch.kernels.tier_find.kernel import tier_find_tiles
     from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
+    lanes = q.numel()
+    sp = (None if st.spill is None else
+          spill_layout(st.spill.keys, st.spill.dead, st.spill.run_start,
+                       st.spill.n))
+    _, ss, sk, _, sm, krs, srs = sorted_lanes(st.hot.num_slots, q, vals,
+                                              mask)
+    me = torch.tensor([lanes], dtype=torch.int32, device=DEV)
+    slots = hash_slot(q, st.hot.num_slots)
+    views = {"level": skiplist_layout, "block": bskiplist_layout}
+    bounds = {}
+    for layout in layouts:
+        wl = views[layout](st.cold)
+        args = (sk, ss, sm, krs, srs, st.hot.keys, st.hot_meta, wl, me, sp,
+                "lru")
+        got = tier_apply_tiles(*args)
+        check(max_abs_err(torch, got, tier_apply_planes_ref(*args)) == 0,
+              f"tier_apply ({label}, {layout}, {lanes} lanes) differs from "
+              f"its plain version")
+        bnd, in_warm = tier_apply_bound(torch, sk, ss, sm, st.hot.keys,
+                                        st.hot_meta, wl, sp, layout)
+        check(torch.equal(got[0].bool(), in_warm),
+              "tier_apply: the bound's replay differs")
+        bounds[("tier_apply", layout)] = bnd
+        fargs = (q, slots, st.hot.keys, wl, sp)
+        if sp is not None:
+            got = tier_find_tiles(*fargs)
+            check(max_abs_err(torch, got, tier_find_planes_ref(*fargs)) == 0,
+                  f"tier_find ({label}, {layout}, {lanes} lanes) differs "
+                  f"from its plain version")
+            fb, replayed = tier_find_bound(torch, q, slots, st.hot.keys, wl,
+                                           sp, layout)
+            check(max_abs_err(torch, got, replayed) == 0,
+                  "tier_find: the bound's replay differs")
+            bounds[("tier_find", layout)] = fb
+        for kern in ("tier_apply", "tier_find"):
+            if (kern, layout) not in bounds:
+                continue
+            bnd = bounds[(kern, layout)]
+            if layout == "block":
+                bnd = min(bnd, bounds[(kern, "level")])
+            fn = ((lambda a=args: tier_apply_tiles(*a))
+                  if kern == "tier_apply"
+                  else (lambda a=fargs: tier_find_tiles(*a)))
+            rows[(kern, layout, label, lanes)] = shape_row(torch, fn, bnd)
+
+
+# the serving engine's prefix cache: an `obs:tiered3/lru` store of 1,024
+# cells (`serving.prefix_cache.prefix_cache_init`), probed and filled with
+# a prompt's full pages, 9 to 64 lanes a call
+SERVE_PC_CAPACITY = 1024
+SERVE_PC_LANES = (9, 64)
+
+
+def tier_shapes(torch, rng, keys, t3, t2):
+    """tier_apply and tier_find (`tier_rows`) at the main path's two plan
+    widths: a workload plan of WL_LANES lanes (3/4 stored keys, 95% of the
+    lanes inserting) and a preload plan of PRELOAD_LANES fresh keys, every
+    lane inserting; both warm layouts; tier_apply with spill (tiered3) and
+    without (hash+skiplist), tier_find with spill. Then the serving
+    shapes: the level layout on a stack of the prefix cache's capacity
+    with spill runs, at SERVE_PC_LANES lanes (3/4 stored keys, every lane
+    inserting). Returns the rows keyed (kernel, layout, label, lanes)."""
+    from repro_torch.core.bits import from_u64
     rows = {}
     fresh = rng.integers(1, 2**64 - 2, PRELOAD_LANES, dtype=np.uint64)
     for lanes, qn, share in ((WL_LANES, mixed_keys(rng, keys, WL_LANES),
@@ -834,52 +923,124 @@ def tier_shapes(torch, rng, keys, t3, t2):
                         DEV)
         mask = torch.from_numpy(rng.random(lanes) < share).to(DEV)
         for st, label in ((t3, "spill"), (t2, "no spill")):
-            sp = (None if st.spill is None else
-                  spill_layout(st.spill.keys, st.spill.dead,
-                               st.spill.run_start, st.spill.n))
-            _, ss, sk, _, sm, krs, srs = sorted_lanes(st.hot.num_slots, q,
-                                                      vals, mask)
-            me = torch.tensor([lanes], dtype=torch.int32, device=DEV)
-            slots = hash_slot(q, st.hot.num_slots)
-            bounds = {}
-            for layout, wl in (("level", skiplist_layout(st.cold)),
-                               ("block", bskiplist_layout(st.cold))):
-                args = (sk, ss, sm, krs, srs, st.hot.keys, st.hot_meta, wl,
-                        me, sp, "lru")
-                got = tier_apply_tiles(*args)
-                check(max_abs_err(torch, got, tier_apply_planes_ref(*args))
-                      == 0, f"tier_apply ({label}, {layout}, {lanes} "
-                      f"lanes) differs from its plain version")
-                bnd, in_warm = tier_apply_bound(torch, sk, ss, sm,
-                                                st.hot.keys, st.hot_meta, wl,
-                                                sp, layout)
-                check(torch.equal(got[0].bool(), in_warm),
-                      "tier_apply: the bound's replay differs")
-                bounds[("tier_apply", layout)] = bnd
-                if sp is not None:
-                    fargs = (q, slots, st.hot.keys, wl, sp)
-                    got = tier_find_tiles(*fargs)
-                    check(max_abs_err(torch, got, tier_find_planes_ref(
-                        *fargs)) == 0, f"tier_find ({layout}, {lanes} "
-                        f"lanes) differs from its plain version")
-                    fb, replayed = tier_find_bound(torch, q, slots,
-                                                   st.hot.keys, wl, sp,
-                                                   layout)
-                    check(max_abs_err(torch, got, replayed) == 0,
-                          "tier_find: the bound's replay differs")
-                    bounds[("tier_find", layout)] = fb
-                for kern in ("tier_apply", "tier_find"):
-                    if (kern, layout) not in bounds:
-                        continue
-                    bnd = bounds[(kern, layout)]
-                    if layout == "block":
-                        bnd = min(bnd, bounds[(kern, "level")])
-                    fn = ((lambda a=args: tier_apply_tiles(*a))
-                          if kern == "tier_apply"
-                          else (lambda a=fargs: tier_find_tiles(*a)))
-                    rows[(kern, layout, label, lanes)] = shape_row(
-                        torch, fn, bnd)
+            tier_rows(torch, rows, st, label, q, vals, mask,
+                      ("level", "block"))
+    pc_keys = np.unique(rng.integers(1, 2**64 - 2, 2 * SERVE_PC_CAPACITY,
+                                     dtype=np.uint64))
+    pc_keys = rng.permutation(pc_keys)
+    pc = build_tier_stack(torch, rng, from_u64(pc_keys, DEV),
+                          SERVE_PC_CAPACITY)
+    for lanes in SERVE_PC_LANES:
+        q = from_u64(mixed_keys(rng, pc_keys[:SERVE_PC_CAPACITY], lanes), DEV)
+        vals = from_u64(rng.integers(0, 2**64 - 1, lanes, dtype=np.uint64),
+                        DEV)
+        tier_rows(torch, rows, pc, "serving, spill", q, vals,
+                  torch.ones(lanes, dtype=torch.bool, device=DEV),
+                  ("level",))
     return rows
+
+
+def probe_rows(torch, rng, keys, flat, table):
+    """skiplist_search, bskiplist_walk, hash_probe and splitorder_probe at
+    the main path's two plan widths: a workload plan of WL_LANES lanes
+    (3/4 stored keys) and a preload plan of PRELOAD_LANES fresh keys, on
+    the main path's states, each checked against its plain version and
+    its bound's replay, timed beside its bound and its library call
+    (`torch.searchsorted` of the ordered terminal keys for the two walks,
+    grouped by table for splitorder_probe; none for hash_probe). Returns
+    the rows keyed by (name, shape label)."""
+    from repro_torch.core.bits import bitrev64, from_u64, hash64, ordered
+    from repro_torch.core.layout import (bskiplist_layout, hash_slot,
+                                         skiplist_layout)
+    from repro_torch.core.splitorder import _table_of
+    from repro_torch.kernels.bskiplist_walk.kernel import bskiplist_walk_tiles
+    from repro_torch.kernels.bskiplist_walk.ref import bskiplist_walk_ref
+    from repro_torch.kernels.hash_probe.kernel import hash_probe_tiles
+    from repro_torch.kernels.hash_probe.ref import hash_probe_ref
+    from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
+    from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
+    from repro_torch.kernels.splitorder_probe.kernel import \
+        splitorder_probe_tiles
+    from repro_torch.kernels.splitorder_probe.ref import splitorder_probe_ref
+    plans = {f"workload, {WL_LANES} lanes":
+             from_u64(mixed_keys(rng, keys, WL_LANES), DEV),
+             f"preload, {PRELOAD_LANES} lanes":
+             from_u64(rng.integers(1, 2**64 - 2, PRELOAD_LANES,
+                                   dtype=np.uint64), DEV)}
+    rows = {}
+
+    def row(name, shape, fn, ref, replay, stream, library=None, cap=None):
+        got = fn()
+        check(max_abs_err(torch, got, ref()) == 0,
+              f"{name} ({shape}) differs from its plain version")
+        reads = Reads()
+        check(max_abs_err(torch, got, replay(reads)) == 0,
+              f"{name} ({shape}): the bound's replay differs")
+        bnd = bound(torch, reads, stream)
+        if cap is not None:
+            bnd = min(bnd, cap)
+        r = shape_row(torch, fn, bnd)
+        r["library_ms"] = None if library is None else median_ms(torch,
+                                                                 library)
+        rows[(name, shape)] = r
+        return r
+
+    lay, blay = skiplist_layout(flat), bskiplist_layout(flat)
+    oterm = ordered(flat.term_keys)
+    for shape, q in plans.items():
+        T = q.numel()
+        oq = ordered(q)
+        level = row("skiplist_search", shape,
+                    lambda: skiplist_search_tiles(q, lay),
+                    lambda: skiplist_search_ref(q, lay),
+                    lambda reads: walk_reads(torch, reads, q, lay),
+                    T * (8 + 1 + 4) + 4 * len(lay.offsets),
+                    lambda: torch.searchsorted(oterm, oq))
+        row("bskiplist_walk", shape, lambda: bskiplist_walk_tiles(q, blay),
+            lambda: bskiplist_walk_ref(q, blay),
+            lambda reads: block_reads(torch, reads, q, blay),
+            T * (8 + 1 + 4), lambda: torch.searchsorted(oterm, oq),
+            (level["bound_ms"], level["bound_by"]))
+        slots = hash_slot(q, table.num_slots)
+        row("hash_probe", shape, lambda: hash_probe_tiles(q, slots,
+                                                          table.keys),
+            lambda: hash_probe_ref(q, slots, table.keys),
+            lambda reads: bucket_reads(torch, reads, q, slots, table.keys,
+                                       False),
+            T * (8 + 4 + 1 + 4))
+    del lay, blay, oterm
+    h, _, _ = build_splitorder(torch, rng)
+    orf = ordered(h.rk)
+    for shape, q in plans.items():
+        q_rk, tables = bitrev64(hash64(q)), _table_of(h, q)
+        args = (q_rk, q, tables, h.rk, h.keys)
+        grouped = grouped_queries(torch, q_rk, tables, h.rk.shape[0])
+        row("splitorder_probe", shape, lambda: splitorder_probe_tiles(*args),
+            lambda: splitorder_probe_ref(*args),
+            lambda reads: so_reads(torch, reads, *args),
+            q.numel() * (8 + 8 + 4 + 1 + 4),
+            lambda: torch.searchsorted(orf, grouped))
+    del h, orf
+    torch.cuda.empty_cache()
+    return rows
+
+
+def grouped_queries(torch, q_rk, tables, n_tables):
+    """The ordered rk of the queries grouped by table, one row a table
+    padded with the largest ordered key: the input of the grouped
+    `torch.searchsorted` that finds every query's position in its table's
+    row (splitorder_probe's library yardstick)."""
+    from repro_torch.core.bits import ordered
+    t = q_rk.numel()
+    o = torch.argsort(tables, stable=True)
+    counts = torch.bincount(tables.long(), minlength=n_tables)
+    row = torch.repeat_interleave(torch.arange(n_tables, device=DEV), counts)
+    col = torch.arange(t, device=DEV) - torch.cumsum(counts, 0)[row] \
+        + counts[row]
+    grouped = torch.full((n_tables, int(counts.max())), (1 << 63) - 1,
+                         dtype=torch.int64, device=DEV)
+    grouped[row, col] = ordered(q_rk[o])
+    return grouped
 
 
 def build_small_heap(torch, rng, capacity, live, popped):
@@ -942,17 +1103,20 @@ def shapes_only(torch, seed: int) -> None:
     plan drawn alike."""
     rng = np.random.default_rng(seed)
     keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
-    del flat, table
     tier_rows = tier_shapes(torch, np.random.default_rng([seed, 5]), keys,
                             t3, t2)
     del t3, t2
+    probes = probe_rows(torch, np.random.default_rng([seed, 7]), keys, flat,
+                        table)
+    del flat, table
     torch.cuda.empty_cache()
     heap = build_pq_heap(torch, rng)
     T = WL_LANES
     pop = torch.from_numpy(rng.permutation(T) < T // 2).to(DEV)
     ranks = torch.cumsum(pop.to(torch.int32), 0, dtype=torch.int32) - 1
     print_shapes(tier_rows, pq_shapes(torch, np.random.default_rng([seed, 6]),
-                                      heap, ranks, pop.to(torch.int8)))
+                                      heap, ranks, pop.to(torch.int8)),
+                 probes)
 
 
 def build_splitorder(torch, rng):
@@ -1044,16 +1208,7 @@ def splitorder_kernel_row(torch, rng):
     print(f"splitorder_probe: bit-identical ({int(hit.sum())} of {T} "
           f"found; collision window {f[8:13]} at {at[8:13]})", flush=True)
     # the library yardstick: the same searches, grouped by table
-    o = torch.argsort(tables, stable=True)
-    counts = torch.bincount(tables.long(), minlength=h.rk.shape[0])
-    width = int(counts.max())
-    row = torch.repeat_interleave(torch.arange(h.rk.shape[0], device=DEV),
-                                  counts)
-    col = torch.arange(T, device=DEV) - torch.cumsum(counts, 0)[row] \
-        + counts[row]
-    grouped = torch.full((h.rk.shape[0], width), (1 << 63) - 1,
-                         dtype=torch.int64, device=DEV)
-    grouped[row, col] = ordered(q_rk[o])
+    grouped = grouped_queries(torch, q_rk, tables, h.rk.shape[0])
     orf = ordered(h.rk)
     r = dict(max_abs_err=err,
              ms=median_ms(torch, lambda: splitorder_probe_tiles(*args)),
@@ -1106,15 +1261,46 @@ def walk_edge_queries(rng, keys, t):
     return np.concatenate([special, rng.choice(pool, max(t - 4, 0))])[:t]
 
 
+@contextlib.contextmanager
+def forced_team(module, rule: str, team: int):
+    """Make the team-width rule `module.rule` return `team`, so that an
+    edge case runs that kernel instance whatever its plan width."""
+    orig = getattr(module, rule)
+    setattr(module, rule, lambda *a, **k: team)
+    try:
+        yield
+    finally:
+        setattr(module, rule, orig)
+
+
+def rule_plans(rule, sms: int, slots, widths) -> dict:
+    """{plan width: team} for the widest plan at which the team-width rule
+    `rule(k)` picks each width it can pick: a width w's teams are all
+    resident up to k = sms * slots(w) / w lanes, and the rule picks w there
+    unless a wider team is still resident; past every such k it picks the
+    narrowest."""
+    plans = {}
+    for w in widths:
+        k = sms * slots(w) // w
+        if k >= 1 and rule(k) == w:
+            plans[k] = w
+    if widths[-1] not in plans.values():
+        k = max(sms * slots(w) // w for w in widths) + 1
+        plans[k] = rule(k)
+    return plans
+
+
 def walk_edge_sweep(torch, rng):
     """The kernels that share `level_walk` (skiplist_search, pq_pop,
     tier_find and tier_apply in the level layout) held bit for bit
     against their plain versions on `walk_edge_states`, at WALK_EDGE_LANES
     lanes (`walk_edge_queries`; for pq_pop, ranks from -1
-    up past the live total with a tenth of the lanes masked off)."""
+    up past the live total with a tenth of the lanes masked off);
+    tier_find in both layouts at every team width it has (`forced_team`)."""
     from repro_torch.core import hashtable as ht
     from repro_torch.core.bits import from_u64
-    from repro_torch.core.layout import hash_slot, skiplist_layout
+    from repro_torch.core.layout import (bskiplist_layout, hash_slot,
+                                         skiplist_layout)
     from repro_torch.kernels.pq_pop.kernel import pq_pop_tiles
     from repro_torch.kernels.pq_pop.ref import pq_pop_ref
     from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
@@ -1122,11 +1308,14 @@ def walk_edge_sweep(torch, rng):
     from repro_torch.kernels.tier_apply.kernel import tier_apply_tiles
     from repro_torch.kernels.tier_apply.ops import sorted_lanes
     from repro_torch.kernels.tier_apply.ref import tier_apply_planes_ref
+    from repro_torch.kernels.tier_find import kernel as tfk
     from repro_torch.kernels.tier_find.kernel import tier_find_tiles
     from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
     n, hits = 0, 0
+    widths = collections.Counter()
     for label, st, keys in walk_edge_states(torch, rng):
         lay = skiplist_layout(st)
+        blay = bskiplist_layout(st)
         hot = ht.fixed_init(1 << max(st.capacity.bit_length() - 5, 0), 4,
                             device=DEV)
         meta = torch.zeros(tuple(hot.keys.shape), dtype=torch.int32,
@@ -1148,10 +1337,16 @@ def walk_edge_sweep(torch, rng):
                               pq_pop_ref(ranks, mask, lay)) == 0,
                   f"walk edges: pq_pop differs ({label}, T {t})")
             slots = hash_slot(q, hot.num_slots)
-            args = (q, slots, hot.keys, lay, None)
-            check(max_abs_err(torch, tier_find_tiles(*args),
-                              tier_find_planes_ref(*args)) == 0,
-                  f"walk edges: tier_find differs ({label}, T {t})")
+            for layout, wl in (("level", lay), ("block", blay)):
+                args = (q, slots, hot.keys, wl, None)
+                want = tier_find_planes_ref(*args)
+                for team in tfk.TEAMS[layout]:
+                    with forced_team(tfk, "find_team", team):
+                        got = tier_find_tiles(*args)
+                    check(max_abs_err(torch, got, want) == 0,
+                          f"walk edges: tier_find differs ({label}, T {t}, "
+                          f"{layout} team {team})")
+                    widths[(layout, team)] += 1
             vals = q ^ 0x77
             lanes = torch.from_numpy(rng.random(t) > 0.1).to(DEV)
             _, ss, sk, _, sm, krs, srs = sorted_lanes(hot.num_slots, q, vals,
@@ -1165,9 +1360,11 @@ def walk_edge_sweep(torch, rng):
             n += 1
     check(hits > 0, "walk edges: some queries are found")
     print(f"walk edges: skiplist_search, pq_pop, tier_find and tier_apply "
-          f"(level layout) bit-identical on {n} (state, T) "
+          f"(level layout; tier_find also in the block layout, at every "
+          f"team width of each) bit-identical on {n} (state, T) "
           f"cases, capacities {WALK_EDGE_CAPS}, T {WALK_EDGE_LANES}; "
-          f"{hits} skiplist hits", flush=True)
+          f"{hits} skiplist hits; tier_find cases by (layout, team) "
+          f"{dict(sorted(widths.items()))}", flush=True)
 
 
 # the redesigned kernels' edge sweep: tier_apply at 1 lane, at a width
@@ -1238,7 +1435,8 @@ def tier_apply_edge_sweep(torch, rng):
     from repro_torch.core.layout import (bskiplist_layout, hash_slot,
                                          skiplist_layout)
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.tier_apply.kernel import (TILE, member_slots,
+    from repro_torch.kernels.tier_apply.kernel import (LEVEL_TEAMS, TILE,
+                                                       member_slots,
                                                        member_team,
                                                        tier_apply_tiles)
     from repro_torch.kernels.tier_apply.ops import sorted_lanes
@@ -1274,12 +1472,10 @@ def tier_apply_edge_sweep(torch, rng):
     # the widest plan of each level team width that some plan width takes
     # and the sweep's widths miss
     teams = {k: member_team(k, "level", sms, slots) for k in TA_EDGE_LANES}
-    wide = []
-    for w in (16, 8, 4, 2, 1):
-        k = sms * slots(w) // w
-        if member_team(k, "level", sms, slots) == w and w not in teams.values():
-            wide.append(k)
-            teams[k] = w
+    wide = {k: w for k, w in rule_plans(
+        lambda k: member_team(k, "level", sms, slots), sms, slots,
+        LEVEL_TEAMS).items() if w not in teams.values()}
+    teams.update(wide)
     counts.update({f"level_team_{w}": 0 for w in set(teams.values())})
     counts["block_team_32"] = 0
     plan = [(sp_label, k, lanes, (("none", (k,)), ("lru", (k, 1, 0)),
@@ -1337,6 +1533,147 @@ def tier_apply_edge_sweep(torch, rng):
           flush=True)
     for name, n in counts.items():
         check(n > 0, f"tier_apply edges: no case reaches {name}")
+
+
+TF_EDGE_LANES = (1, 777, 4096)
+
+
+def tier_find_edge_sweep(torch, rng):
+    """tier_find held bit for bit against its plain version in both warm
+    layouts at TF_EDGE_LANES lanes and at the widest plan of every team
+    width its rule picks (`rule_plans`), with no spill tier, a spill tier
+    whose runs are all empty, one run, and 64 runs (empty ones, a run of
+    one cell, a run that is all tombstones). The warm tier has a ragged
+    last node (C = 4,000); the lanes mix stored keys of every tier and
+    fresh ones, with 0, 2^64 - 2, KEY_INF, the one-cell run's key and a
+    key of the tombstoned run first. Counts the cases of each team width
+    and those that reach each tier's hits and the spill's edges, and
+    requires each count > 0."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core import hashtable as ht
+    from repro_torch.core.bits import from_u64
+    from repro_torch.core.layout import (bskiplist_layout, hash_slot,
+                                         skiplist_layout)
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.tier_find import kernel as tfk
+    from repro_torch.kernels.tier_find.ref import tier_find_planes_ref
+    dev = torch.device(DEV)
+    sms = cuda.sm_count(dev)
+    wkeys = np.unique(rng.integers(1, 2**64 - 2, 3100, dtype=np.uint64))[:3000]
+    wk = from_u64(wkeys, DEV)
+    warm, _, _ = dsl.insert_batch(dsl.skiplist_init(4000, device=DEV), wk,
+                                  wk ^ 0x5A5A)
+    hot = ht.fixed_init(TA_EDGE_SLOTS, TA_EDGE_BUCKET, device=DEV)
+    hk = from_u64(rng.integers(1, 2**64 - 2, 1500, dtype=np.uint64), DEV)
+    hot, _, _ = ht.fixed_insert(hot, hk, hk + 1)
+    hot_np = hot.keys.reshape(-1).cpu().numpy().view(np.uint64)
+    hot_np = hot_np[hot_np != 2**64 - 1]
+    sizes64 = [int(x) for x in rng.integers(0, 400, 64)]
+    sizes64[0], sizes64[3], sizes64[5], sizes64[9] = 0, 1, 0, 300
+    spills = {"no spill": (None, np.zeros(0, np.uint64)),
+              "empty runs": sorted_runs(torch, rng, [0] * 16, (), 64),
+              "1 run": sorted_runs(torch, rng, [2000], (), 100),
+              "64 runs": sorted_runs(torch, rng, sizes64, (9,), 100)}
+    starts = np.cumsum([0] + sizes64)
+    one_cell = spills["64 runs"][1][starts[3]]
+    dead_run = spills["64 runs"][1][starts[9]:starts[10]]
+    lays = {"level": skiplist_layout(warm), "block": bskiplist_layout(warm)}
+    plan = []
+    for layout in lays:
+        slots = functools.partial(tfk.find_slots, dev.index or 0, layout)
+        print(f"tier_find {layout}: resident threads an SM by team "
+              + json.dumps({w: slots(w) for w in tfk.TEAMS[layout]}))
+        teams = {k: tfk.find_team(k, layout, sms, slots)
+                 for k in TF_EDGE_LANES}
+        teams.update(rule_plans(lambda k: tfk.find_team(k, layout, sms,
+                                                        slots),
+                                sms, slots, tfk.TEAMS[layout]))
+        plan += [(layout, k, team) for k, team in sorted(teams.items())]
+    counts = collections.Counter({f"{layout}_team_{team}": 0
+                                  for layout, _, team in plan})
+    counts.update(dict.fromkeys(("cases", "hot_hits", "warm_hits",
+                                 "spill_hits", "one_cell_run_hits",
+                                 "tombstoned_run_misses", "key_inf_lanes",
+                                 "empty_run_0", "preload_width"), 0))
+    for layout, k, team in plan:
+        for sp_label, (sp, sp_keys) in spills.items():
+            pool = np.concatenate([wkeys, hot_np, sp_keys])
+            keys = np.where(rng.random(k) < 0.75, rng.choice(pool, k),
+                            rng.integers(1, 2**64 - 2, k, dtype=np.uint64))
+            special = np.array([0, 2**64 - 2, 2**64 - 1, one_cell,
+                                dead_run[0]], np.uint64)
+            keys[:min(k, 5)] = special[:min(k, 5)]
+            q = from_u64(keys, DEV)
+            args = (q, hash_slot(q, TA_EDGE_SLOTS), hot.keys, lays[layout],
+                    sp)
+            want = tier_find_planes_ref(*args)
+            check(tfk.find_team(k, layout, sms, functools.partial(
+                tfk.find_slots, dev.index or 0, layout)) == team,
+                  "tier_find edges: the plan's team width")
+            got = tfk.tier_find_tiles(*args)
+            check(max_abs_err(torch, got, want) == 0,
+                  f"tier_find edges: {layout} team {team}, {sp_label}, {k} "
+                  f"lanes differs from its plain version")
+            counts["cases"] += 1
+            counts[f"{layout}_team_{team}"] += 1
+            counts["hot_hits"] += int(want[0].sum())
+            counts["warm_hits"] += int(want[2].sum())
+            counts["key_inf_lanes"] += int((q == -1).sum())
+            counts["preload_width"] += int(k >= PRELOAD_LANES)
+            if sp is not None:
+                counts["spill_hits"] += int(want[4].sum())
+                counts["empty_run_0"] += int(sp_label == "64 runs")
+            if sp_label == "64 runs":
+                hit = want[4].bool()
+                counts["one_cell_run_hits"] += int(
+                    (hit & (q == int(one_cell.view(np.int64)))).sum())
+                counts["tombstoned_run_misses"] += int(
+                    (~hit & (q == int(dead_run[:1].view(np.int64)[0])))
+                    .sum())
+    print("tier_find edges: bit-identical in " + json.dumps(counts),
+          flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"tier_find edges: no case reaches {name}")
+
+
+def bskiplist_edge_sweep(torch, rng):
+    """bskiplist_walk held bit for bit against its plain version on
+    `walk_edge_states` (empty, 3/4 full and all tombstoned at 16, 100 and
+    4,096 cells: ragged last nodes, one node, several), at WALK_EDGE_LANES
+    lanes and at the widest plan of every team width its rule picks
+    (`rule_plans`), on `walk_edge_queries`. Counts the cases of each team
+    width, the hits and the KEY_INF lanes, and requires each count > 0."""
+    from repro_torch.core.bits import from_u64
+    from repro_torch.core.layout import bskiplist_layout
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.bskiplist_walk import kernel as bwk
+    from repro_torch.kernels.bskiplist_walk.ref import bskiplist_walk_ref
+    dev = torch.device(DEV)
+    sms = cuda.sm_count(dev)
+    slots = functools.partial(bwk.walk_slots, dev.index or 0)
+    print("bskiplist_walk: resident threads an SM by team "
+          + json.dumps({w: slots(w) for w in bwk.TEAMS}))
+    teams = {k: bwk.walk_team(k, sms, slots) for k in WALK_EDGE_LANES}
+    teams.update(rule_plans(lambda k: bwk.walk_team(k, sms, slots), sms,
+                            slots, bwk.TEAMS))
+    counts = collections.Counter({f"team_{w}": 0 for w in teams.values()})
+    counts.update(cases=0, hits=0, key_inf_lanes=0)
+    for label, st, keys in walk_edge_states(torch, rng):
+        lay = bskiplist_layout(st)
+        for k, team in sorted(teams.items()):
+            q = from_u64(walk_edge_queries(rng, keys, k), DEV)
+            want = bskiplist_walk_ref(q, lay)
+            check(max_abs_err(torch, bwk.bskiplist_walk_tiles(q, lay), want)
+                  == 0, f"bskiplist edges: {label}, {k} lanes (team "
+                  f"{team}) differs from its plain version")
+            counts["cases"] += 1
+            counts[f"team_{team}"] += 1
+            counts["hits"] += int(want[0].sum())
+            counts["key_inf_lanes"] += int((q == -1).sum())
+    print("bskiplist_walk edges: bit-identical in " + json.dumps(counts),
+          flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"bskiplist edges: no case reaches {name}")
 
 
 def pq_edge_heaps(torch, rng):
@@ -1477,6 +1814,8 @@ def kernel_phase(torch, seed: int):
     # inputs stay those of the seed alone
     walk_edge_sweep(torch, np.random.default_rng([seed, 1]))
     tier_apply_edge_sweep(torch, np.random.default_rng([seed, 3]))
+    tier_find_edge_sweep(torch, np.random.default_rng([seed, 8]))
+    bskiplist_edge_sweep(torch, np.random.default_rng([seed, 9]))
     pq_edge_sweep(torch, np.random.default_rng([seed, 4]))
     rng = np.random.default_rng(seed)
     keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
@@ -1652,7 +1991,10 @@ def kernel_phase(torch, seed: int):
                       flush=True)
     shapes = tier_shapes(torch, np.random.default_rng([seed, 5]), keys, t3,
                          t2)
-    del flat, table, t3, t2
+    del t3, t2
+    probes = probe_rows(torch, np.random.default_rng([seed, 7]), keys, flat,
+                        table)
+    del flat, table
     torch.cuda.empty_cache()
 
     # pq_pop: a heap with a tombstone run at its head; a plan's pop lanes
@@ -1720,7 +2062,7 @@ def kernel_phase(torch, seed: int):
                                          for k, v in block_rows.items()]:
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         print_row(name, r, r.pop("lanes", T))
-    print_shapes(shapes, pq_rows)
+    print_shapes(shapes, pq_rows, probes)
     return rows
 
 
@@ -2536,7 +2878,9 @@ def leaves_equal(torch, a, b) -> bool:
 # launches a wrapper call makes, and the launches by (kernel, call shape)
 # harvested from every cell of the main path and the serving and hymba
 # phases (`harvest_shapes`)
-LAUNCHES_A_CALL = {"tier_apply": 2, "tier_find": 1, "pq_pop": 2}
+LAUNCHES_A_CALL = {"tier_apply": 2, "tier_find": 1, "pq_pop": 2,
+                   "skiplist_search": 1, "hash_probe": 1,
+                   "bskiplist_walk": 1, "splitorder_probe": 1}
 SHAPE_LAUNCHES = collections.Counter()
 
 

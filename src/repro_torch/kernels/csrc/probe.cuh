@@ -2,11 +2,13 @@
 //
 // The reference Pallas kernels share their bodies the same way:
 // `bucket_probe` (kernels/hash_probe), `level_walk` (kernels/skiplist_search),
-// `block_walk` (kernels/bskiplist_walk) and `spill_run_probe`
-// (kernels/tier_find) are each written once and reused by the fused tier
-// kernels and the pq pop. The team bodies at the end (`team_bucket_row`,
-// `team_spill_probe`, with `block_walk<32>`) serve one query with a team of
-// lanes and give the same results. Keys arrive as int64 bit patterns and
+// `block_walk` (kernels/bskiplist_walk, here `TeamBlockWalk`) and
+// `spill_run_probe` (kernels/tier_find, here `team_spill_probe`) are each
+// written once and reused by the fused tier kernels and the pq pop. The team bodies at the end (`team_bucket_row`,
+// `team_spill_probe`, `TeamBlockWalk`) serve one query with a team of lanes
+// and give the same results; the walks are steppers (`LevelWalk`,
+// `TeamBlockWalk`), so a kernel can run a walk's rounds inside the spill
+// search's. Keys arrive as int64 bit patterns and
 // are compared here as unsigned 64-bit integers: the card has native u64
 // compares, so the TPU's (hi, lo) u32 split does not exist on this side.
 //
@@ -88,8 +90,51 @@ __device__ __forceinline__ T pick(const T (&v)[4], int sel) {
 // speculative loads are the cells the reference reads on some path; the
 // work's own reads (chip_smoke.py's bound) do not count them.
 //
-// One thread a query; `off` holds levels + 1 offsets (in shared memory).
-// Returns found; *idx = terminal index.
+// A round is written once, as the loads and the picks below, and run by
+// two walks: `level_walk`, its rounds back to back, and `LevelWalk`, the
+// same rounds as a stepper.
+
+// Level row [lo, hi)'s four candidates from `start` and their children.
+__device__ __forceinline__ void level_row(const u64* keys, const int* child,
+                                          int lo, int hi, int c1, int start,
+                                          u64 (&key)[4], int (&val)[4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int c = clampi(start + p, 0, c1 - 1);
+    const bool in = c < hi - lo;
+    key[p] = in ? keys[lo + c] : KEY_INF_U64;
+    val[p] = in ? child[lo + c] : 0;
+  }
+}
+
+// The terminal round's four candidates from `start`: their cells, keys and
+// whether each is a live match of q.
+__device__ __forceinline__ void term_row(u64 q, const u64* term_keys,
+                                         const int8_t* term_mark, int cap,
+                                         int start, u64 (&key)[4],
+                                         int (&hit)[4], int (&at)[4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {          // keys and marks in one round
+    at[p] = clampi(start + p, 0, cap - 1);
+    key[p] = term_keys[at[p]];
+    hit[p] = key[p] == q && term_mark[at[p]] == 0;
+  }
+}
+
+// The terminal pick: found = a live match; *idx = the picked cell.
+__device__ __forceinline__ bool term_pick(u64 q, const u64 (&key)[4],
+                                          const int (&hit)[4],
+                                          const int (&at)[4], int* idx) {
+  const int sel = first_le(q, key);
+  *idx = pick(at, sel);
+  return pick(hit, sel) != 0;
+}
+
+// The whole walk, its rounds back to back: the body of the kernels that
+// walk alone (skiplist_search, pq_pop's select, tier_apply's level
+// membership), a loop that compiles leaner there than the stepper (pq_pop's
+// select ran 20% slower on the stepper, PERF.md). Returns found; *idx =
+// terminal index.
 __device__ __forceinline__ bool level_walk(u64 q, const u64* lvl_keys,
                                            const int* lvl_child, const int* off,
                                            int levels, int c1,
@@ -102,132 +147,73 @@ __device__ __forceinline__ bool level_walk(u64 q, const u64* lvl_keys,
     const int lo = off[r];
     u64 key[4];
     int child[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int c = clampi(start + p, 0, c1 - 1);
-      const bool in = c < hi - lo;
-      key[p] = in ? lvl_keys[lo + c] : KEY_INF_U64;
-      child[p] = in ? lvl_child[lo + c] : 0;
-    }
+    level_row(lvl_keys, lvl_child, lo, hi, c1, start, key, child);
     start = pick(child, first_le(q, key));
     hi = lo;
   }
   u64 key[4];
   int at[4], hit[4];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {          // keys and marks in one round
-    at[p] = clampi(start + p, 0, cap - 1);
-    key[p] = term_keys[at[p]];
-    hit[p] = key[p] == q && term_mark[at[p]] == 0;
-  }
-  const int sel = first_le(q, key);
-  *idx = pick(at, sel);
-  return pick(hit, sel) != 0;
+  term_row(q, term_keys, term_mark, cap, start, key, hit, at);
+  return term_pick(q, key, hit, at, idx);
 }
+
+// The walk as a stepper, so that a caller can run its rounds beside other
+// independent work (tier_find runs them inside the spill search's rounds):
+// `issue` loads a round's candidates, `take` picks from them, and a caller
+// puts its own loads between the two. One thread walks; `off` holds
+// levels + 1 offsets (in shared memory).
+struct LevelWalk {
+  u64 q;
+  const u64* keys;
+  const int* child;
+  const int* off;
+  int c1;
+  const u64* term_keys;
+  const int8_t* term_mark;
+  int cap;
+  int r;            // the next row, levels - 1 down to 0; -1: the terminal
+                    // round; -2: done
+  int start, hi;
+  u64 key[4];
+  int val[4];       // a row's children, or the terminal live matches
+  int at[4];        // the terminal candidates' cells
+  bool found;       // the result: a live match, at terminal index `idx`
+  int idx;
+
+  __device__ __forceinline__ LevelWalk(u64 q_, const u64* keys_,
+                                       const int* child_, const int* off_,
+                                       int levels, int c1_,
+                                       const u64* term_keys_,
+                                       const int8_t* term_mark_, int cap_,
+                                       bool active)
+      : q(q_), keys(keys_), child(child_), off(off_), c1(c1_),
+        term_keys(term_keys_), term_mark(term_mark_), cap(cap_),
+        r(active ? levels - 1 : -2), start(0), hi(off_[levels]),
+        found(false), idx(0) {}
+
+  __device__ __forceinline__ bool pending() const { return r >= -1; }
+
+  __device__ __forceinline__ void issue() {
+    if (r >= 0)
+      level_row(keys, child, off[r], hi, c1, start, key, val);
+    else if (r == -1)
+      term_row(q, term_keys, term_mark, cap, start, key, val, at);
+  }
+
+  __device__ __forceinline__ void take() {
+    if (r < -1) return;
+    if (r >= 0) {
+      start = pick(val, first_le(q, key));
+      hi = off[r];
+    } else {
+      found = term_pick(q, key, val, at, &idx);
+    }
+    --r;
+  }
+};
 
 // Keys per B-skiplist node (core.layout.BSKIP_BLOCK).
 #define BSKIP_B 128
-
-// How many of the B entries node[start + j] (j < B) are below q; an entry
-// at or past `cap` is padding (KEY_INF, never below q). TEAM = 1: one
-// thread reads the whole node. TEAM = 32: the calling warp reads it, lane l
-// taking entries l, l + 32, l + 64, l + 96 (each round one coalesced 256-byte
-// read), and a ballot counts the compares; every lane gets the count. The
-// count does not depend on the order of the entries.
-template <int TEAM>
-__device__ __forceinline__ int node_count_lt(const u64* node, int start,
-                                             int cap, u64 q) {
-  static_assert(TEAM == 1 || TEAM == 32, "a thread or a warp");
-  const int lane = TEAM == 1 ? 0 : (threadIdx.x & 31);
-  int n = 0;
-  if constexpr (TEAM == 1) {
-#pragma unroll 4
-    for (int j = 0; j < BSKIP_B; ++j) {
-      int c = start + j;
-      n += c < cap && node[c] < q ? 1 : 0;
-    }
-  } else {
-    // all of the lane's BSKIP_B / TEAM reads in one round
-    bool lt[BSKIP_B / TEAM];
-#pragma unroll
-    for (int r = 0; r < BSKIP_B / TEAM; ++r) {
-      int c = start + lane + r * TEAM;
-      lt[r] = c < cap && node[c] < q;
-    }
-#pragma unroll
-    for (int r = 0; r < BSKIP_B / TEAM; ++r)
-      n += __popc(__ballot_sync(0xffffffffu, lt[r]));
-  }
-  return n;
-}
-
-// Block-major B-skiplist descent: one whole-node count per index row, from
-// the root (node 0 of row levels - 1) down, the child being base + count;
-// then the count in the terminal block, and the exact match with the
-// tombstone. `blk` is the [levels, w] row stack; the terminal planes hold
-// `cap` cells read with the padded length n_pad = NB * B. Returns found;
-// *idx = terminal index (clipped to [0, n_pad - 1]). Under TEAM = 32 every
-// lane of the warp must call it, and every lane gets the result.
-template <int TEAM>
-__device__ __forceinline__ bool block_walk(u64 q, const u64* blk, int levels,
-                                           int w, const u64* term_keys,
-                                           const int8_t* term_mark, int cap,
-                                           int n_pad, int* idx) {
-  int i = 0;
-  for (int r = levels - 1; r >= 0; --r) {
-    int base = clampi(i, 0, w / BSKIP_B - 1) * BSKIP_B;
-    i = base + node_count_lt<TEAM>(blk + (long long)r * w, base, w, q);
-  }
-  int tb = clampi(i, 0, n_pad / BSKIP_B - 1) * BSKIP_B;
-  i = clampi(tb + node_count_lt<TEAM>(term_keys, tb, cap, q), 0, n_pad - 1);
-  *idx = i;
-  if (i >= cap) return q == KEY_INF_U64;   // padding: KEY_INF key, mark 0
-  return term_keys[i] == q && term_mark[i] == 0;
-}
-
-// The warm tier's walk in either layout: `blocked` selects the block-major
-// rows (`keys` = the [levels, width] row stack, `child` and `off` unused) or
-// the level-major levels (`keys` / `child` flat, `off` the level offsets,
-// width = c1). One thread per query.
-__device__ __forceinline__ bool warm_walk(u64 q, int blocked, const u64* keys,
-                                          const int* child, const int* off,
-                                          int levels, int width,
-                                          const u64* term_keys,
-                                          const int8_t* term_mark, int cap,
-                                          int n_pad, int* idx) {
-  if (blocked)
-    return block_walk<1>(q, keys, levels, width, term_keys, term_mark, cap,
-                         n_pad, idx);
-  return level_walk(q, keys, child, off, levels, width, term_keys,
-                    term_mark, cap, idx);
-}
-
-// Cold-tier probe: searchsorted-left of q in every sorted run
-// [off[r], off[r + 1]) of the spill planes; the first live match wins.
-// Returns found; *cell = matched cell, or the clipped position in run 0.
-__device__ __forceinline__ bool spill_probe(u64 q, const u64* sp_keys,
-                                            const int8_t* sp_dead,
-                                            const int* run_off, int runs,
-                                            int s, int* cell) {
-  int miss_cell = 0;
-  for (int r = 0; r < runs; ++r) {
-    int lo = run_off[r];
-    int end = run_off[r + 1];
-    int hi = end;
-    while (lo < hi) {
-      int mid = (lo + hi) >> 1;
-      if (sp_keys[mid] < q) lo = mid + 1; else hi = mid;
-    }
-    int pos = clampi(lo, 0, s - 1);
-    if (r == 0) miss_cell = pos;
-    if (lo < end && sp_keys[pos] == q && sp_dead[pos] == 0) {
-      *cell = pos;
-      return true;
-    }
-  }
-  *cell = miss_cell;
-  return false;
-}
 
 // Copy a small int32 table (level or run offsets) into shared memory.
 __device__ __forceinline__ void load_table(int* dst, const int* src, int n) {
@@ -363,8 +349,25 @@ __device__ __forceinline__ int kary_pivot(int lo, int n, int u, float part) {
   return lo + min((int)((float)(u + 1) * ((float)n * part)), n - 1);
 }
 
-// Cold-tier probe by a team: `spill_probe`'s result exactly (the first live
-// match in run order wins; a miss reports the clipped searchsorted-left
+// A stepper with nothing to do, for a caller with no work beside the spill
+// search.
+struct NoSide {
+  __device__ __forceinline__ bool pending() const { return false; }
+  __device__ __forceinline__ void issue() {}
+  __device__ __forceinline__ void take() {}
+};
+
+// Run a stepper's remaining rounds; every live lane of the warp calls it.
+template <int TEAM, class Side>
+__device__ __forceinline__ void run_side(Side& side, const Team<TEAM>& t) {
+  while (__any_sync(t.warp, side.pending())) {
+    side.issue();
+    side.take();
+  }
+}
+
+// Cold-tier probe by a team: the plain version's result exactly (the first
+// live match in run order wins; a miss reports the clipped searchsorted-left
 // position in run 0). The non-empty runs are split over the team: a group
 // of g = TEAM / G lanes a run, G the power of two >= n_live (at most TEAM;
 // more runs go in passes). A group runs a (g + 1)-ary search for its run's
@@ -376,14 +379,21 @@ __device__ __forceinline__ int kary_pivot(int lo, int n, int u, float part) {
 // binary search (g = 1, which a team of 4 runs on 4 runs at once and a
 // team of 1 on one run after another), and the runs are searched side by
 // side. A team with `active` false finds nothing.
-template <int TEAM>
+//
+// `side` is a stepper (`LevelWalk`, `TeamBlockWalk`, or `NoSide`) whose
+// rounds run inside the search's: each round issues the side's loads
+// beside the pivots' and takes its result after them, so a walk and the
+// spill search independent of it cost the longer of the two chains, not
+// their sum. What is left of the side after the last round runs alone
+// (`run_side`).
+template <int TEAM, class Side>
 __device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
                                                  const u64* sp_keys,
                                                  const int8_t* sp_dead,
                                                  const int* run_off,
                                                  const int* live, int n_live,
                                                  int s, const Team<TEAM>& t,
-                                                 int* cell) {
+                                                 int* cell, Side& side) {
   int groups = 1;
   while (groups < n_live && groups < TEAM) groups <<= 1;
   const int g = TEAM / groups;
@@ -403,11 +413,15 @@ __device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
     const int end = act ? run_off[r + 1] : 0;
     int hi = end;
     while (__any_sync(t.warp, lo < hi)) {
+      side.issue();
       const int n = hi - lo;
       const bool open = lo < hi;
       const bool whole = n <= g;
       const int p = whole ? lo + sub : kary_pivot(lo, n, sub, part);
-      const bool lt = open && (!whole || sub < n) && sp_keys[p] < q;
+      const bool rd = open && (!whole || sub < n);
+      const u64 pk = rd ? sp_keys[p] : 0;
+      side.take();
+      const bool lt = rd && pk < q;
       const int cnt = __popc((team_ballot(t, lt) >> (grp * g)) & gbits);
       if (open) {
         if (whole) {
@@ -437,6 +451,126 @@ __device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
       at = hpos;
     }
   }
+  run_side(side, t);
   *cell = found ? at : miss;
   return found;
 }
+
+// Block-major B-skiplist descent by a team, as a stepper: one node of each
+// index row from the root (node 0 of row levels - 1) down, the child being
+// base + the node's count of entries below q, then the terminal block, then
+// the exact match with the tombstone. `blk` is the [levels, w] row stack;
+// the terminal planes hold `cap` cells read with the padded length
+// n_pad = NB * B: a cell at or past its row's end (w, or cap) is padding, a
+// KEY_INF key never below q and mark 0, and is not read. The result is the
+// plain version's (its whole-node counts) exactly.
+//
+// The node step follows from TEAM. A warp counts each whole node in one
+// round: lane l reads entries l + j * 32 (j < PER = 4, coalesced) and
+// ballots sum the compares; the count does not depend on the entries'
+// order. A narrower team (PER = 1) searches the node: every node row is
+// sorted with its KEY_INF padding at the end (the terminal keys are,
+// tombstones keeping their keys in place, and each index row takes every
+// B-th entry of the row below; core.layout), so the count is the node's
+// searchsorted-left position, which the team finds by the (TEAM + 1)-ary
+// search of `team_spill_probe`: each round its lanes read TEAM spaced
+// pivots of the open interval of positions and the count of pivots below q
+// narrows it; an interval of at most TEAM cells is read whole. A 128-key
+// node takes 2 rounds at TEAM 16, 3 at 8, 4 at 4, 5 at 2 and 8 at 1, and
+// reads a few 32-byte sectors where the count reads 1 KB. Then one round
+// reads the matched cell's key and tombstone. Every lane of the team walks
+// and gets the result; `take` syncs over the warp's live lanes, so every
+// one of them must call it.
+template <int TEAM>
+struct TeamBlockWalk {
+  // cells a lane reads a round: a warp's whole-node count, else a pivot
+  static constexpr int PER = TEAM == 32 ? BSKIP_B / TEAM : 1;
+  u64 q;
+  const u64* blk;
+  int w;
+  const u64* term_keys;
+  const int8_t* term_mark;
+  int cap, n_pad;
+  Team<TEAM> t;
+  float part;
+  int r;            // the row, levels - 1 down to 0; -1: the terminal
+                    // block; -2: the match round; -3: done
+  int base;         // the node's first cell in its row
+  int lo, hi;       // the open interval of positions in the node
+  u64 k[PER];       // the cells this lane read this round
+  int mark;
+  bool found;       // the result: a live match, at terminal index `idx`
+  int idx;
+
+  __device__ __forceinline__ TeamBlockWalk(u64 q_, const u64* blk_,
+                                           int levels, int w_,
+                                           const u64* term_keys_,
+                                           const int8_t* term_mark_, int cap_,
+                                           int n_pad_, const Team<TEAM>& t_,
+                                           bool active)
+      : q(q_), blk(blk_), w(w_), term_keys(term_keys_),
+        term_mark(term_mark_), cap(cap_), n_pad(n_pad_), t(t_),
+        part(1.0f / (float)(TEAM + 1)), r(active ? levels - 1 : -3), base(0),
+        lo(0), hi(BSKIP_B), mark(0), found(false), idx(0) {}
+
+  __device__ __forceinline__ bool pending() const { return r >= -2; }
+
+  __device__ __forceinline__ void issue() {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) k[j] = KEY_INF_U64;
+    if (r >= -1) {
+      const u64* row = r >= 0 ? blk + (long long)r * w : term_keys;
+      const int end = r >= 0 ? w : cap;
+      if constexpr (PER > 1) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int c = base + t.lane + j * TEAM;
+          if (c < end) k[j] = row[c];
+        }
+      } else {
+        const int n = hi - lo;
+        const bool whole = n <= TEAM;
+        const int c = base + (whole ? lo + t.lane
+                                    : kary_pivot(lo, n, t.lane, part));
+        if ((!whole || t.lane < n) && c < end) k[0] = row[c];
+      }
+    } else if (r == -2 && idx < cap) {
+      k[0] = term_keys[idx];
+      mark = term_mark[idx];
+    }
+  }
+
+  __device__ __forceinline__ void take() {
+    const bool search = r >= -1;
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j)
+      cnt += __popc(team_ballot(t, search && k[j] < q));
+    if (search) {
+      const int n = hi - lo;
+      if (PER > 1 || n <= TEAM) {
+        lo += cnt;
+        hi = lo;
+      } else {
+        const int nlo = cnt > 0 ? kary_pivot(lo, n, cnt - 1, part) + 1 : lo;
+        if (cnt < TEAM) hi = kary_pivot(lo, n, cnt, part);
+        lo = nlo;
+      }
+      if (lo >= hi) {                  // the node's count: the next node
+        const int i = base + lo;
+        if (r > 0)
+          base = clampi(i, 0, w / BSKIP_B - 1) * BSKIP_B;
+        else if (r == 0)
+          base = clampi(i, 0, n_pad / BSKIP_B - 1) * BSKIP_B;
+        else
+          idx = clampi(i, 0, n_pad - 1);
+        lo = 0;
+        hi = BSKIP_B;
+        --r;
+      }
+    } else if (r == -2) {
+      found = idx < cap ? k[0] == q && mark == 0 : q == KEY_INF_U64;
+      --r;
+    }
+  }
+};

@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel `tier_apply_tiles` / `_ta_kernel` /
 // `spill_chunk_probe` in src/repro/kernels/tier_apply/kernel.py (both warm
 // layouts: the level-major `level_walk` or, with `blocked`, the block-major
-// `block_walk` of the reference's `warm_blocked` branch; with and without
+// `TeamBlockWalk` of the reference's `warm_blocked` branch; with and without
 // spill; policies none / lru / size). Lanes come in sorted (slot, key) order
 // with the key-run and slot-run starts precomputed by the glue (`krs[i]` is
 // i or `krs[i - 1]`, and so is `srs[i]`); the nine outputs are the
@@ -19,8 +19,9 @@
 //      empty cells last, is counted across the team with shuffles and
 //      packed 4 bits a column); then, only for an inserting lane that the
 //      hot tier misses, the warm walk (`level_walk` on one lane of the team,
-//      or the team's `block_walk`) and, if that misses, the team's k-ary
-//      search of the spill runs (`team_spill_probe`). It also zeroes the
+//      or the warp's whole-node counts, `TeamBlockWalk<32>`) and, if
+//      that misses, the team's k-ary search of the spill runs
+//      (`team_spill_probe`). It also zeroes the
 //      scan launch's tile states and ticket. The team is 32 lanes in the
 //      block layout, whose node counts read 128 keys a node. In the level
 //      layout the walk runs on one lane, so a wider team only pays where
@@ -149,10 +150,11 @@ __global__ void __launch_bounds__(TA_MEMBER_THREADS, TEAM >= 16 ? 8 : 2)
   bool f_warm = false, f_sp = false;
   int unused;
   if constexpr (BLOCKED) {
-    static_assert(TEAM == 32, "a block walk's team is its warp");
-    if (probe)                         // the same for the whole warp
-      f_warm = block_walk<TEAM>(key, warm_keys, levels, width, term_keys,
-                                term_mark, cap, n_pad, &unused);
+    // the warp counts each whole node (the same for the whole warp)
+    TeamBlockWalk<TEAM> walk(key, warm_keys, levels, width, term_keys,
+                             term_mark, cap, n_pad, tm, probe);
+    run_side(walk, tm);
+    f_warm = walk.found;
   } else {
     bool w = false;
     if (probe && tm.lane == 0)
@@ -160,9 +162,10 @@ __global__ void __launch_bounds__(TA_MEMBER_THREADS, TEAM >= 16 ? 8 : 2)
                      term_keys, term_mark, cap, &unused);
     f_warm = team_ballot(tm, w) != 0;
   }
+  NoSide none;                         // the search waits on the walk
   if (runs > 0)
     f_sp = team_spill_probe(key, probe && !f_warm, sp_keys, sp_dead, roff,
-                            live, n_live, s, tm, &unused);
+                            live, n_live, s, tm, &unused, none);
 
   if (policy != 0) {
     const u64 packed = team_victim_order(

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "hash_probe_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
     "tier_find_launch": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                          _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                         _P, _P],
+                         _P, _I, _P],
+    "tier_find_slots": [_I, _I],
     "tier_apply_member_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P,
                                  _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I,
                                  _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -58,7 +59,9 @@ _SIGNATURES = {
     "tier_apply_member_slots": [_I],
     "tier_apply_scan_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _P, _P],
-    "bskiplist_walk_launch": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P],
+    "bskiplist_walk_launch": [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P, _P, _I,
+                              _P],
+    "bskiplist_walk_slots": [_I],
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _I, _I, _P, _P, _I, _P],
     "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
@@ -178,6 +181,20 @@ def _sm_count(index: int) -> int:
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (read once per device)."""
     return _sm_count(torch.device(device).index or 0)
+
+
+def team_width(k: int, widths, sms: int, slots) -> int:
+    """Lanes a query for a launch of k queries, a team of lanes each, on a
+    card of `sms` SMs; `widths` are the kernel's instances, widest first,
+    and `slots(team)` is the resident threads an SM of the instance for
+    `team` (its occupancy, which its registers set). A wider team runs a
+    query's probes in fewer dependent rounds, but it pays only while all k
+    teams are resident at once, since a second wave waits on the first:
+    the widest of `widths` whose k teams are, else the narrowest."""
+    for team in widths:
+        if k * team <= sms * slots(team):
+            return team
+    return widths[-1]
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -25,5 +25,5 @@ def hash_probe_tiles(q: torch.Tensor, slots: torch.Tensor,
     col = torch.empty(t, dtype=torch.int32, device=q.device)
     cuda.launch("hash_probe", "hash_probe_launch", cuda.ptr(q),
                 cuda.ptr(slots), t, cuda.ptr(keys), keys.shape[0],
-                keys.shape[1], cuda.ptr(found), cuda.ptr(col))
+                keys.shape[1], cuda.ptr(found), cuda.ptr(col), shape=t)
     return found, col

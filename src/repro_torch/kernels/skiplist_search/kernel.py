@@ -44,5 +44,5 @@ def skiplist_search_tiles(q: torch.Tensor, lay: SkiplistLayout):
                 lay.num_levels, lay.c1, cuda.ptr(lay.term_keys),
                 cuda.ptr(lay.term_mark), lay.term_keys.shape[0],
                 cuda.ptr(found), cuda.ptr(idx),
-                walk_geometry(t, cuda.sm_count(q.device)))
+                walk_geometry(t, cuda.sm_count(q.device)), shape=t)
     return found, idx

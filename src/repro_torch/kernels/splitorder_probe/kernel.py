@@ -30,5 +30,5 @@ def splitorder_probe_tiles(q_rk: torch.Tensor, q_key: torch.Tensor,
     cuda.launch("splitorder_probe", "splitorder_probe_launch",
                 cuda.ptr(q_rk), cuda.ptr(q_key), cuda.ptr(tables), t,
                 cuda.ptr(rk), cuda.ptr(keys), rk.shape[0], rk.shape[1],
-                cuda.ptr(found), cuda.ptr(at))
+                cuda.ptr(found), cuda.ptr(at), shape=t)
     return found, at

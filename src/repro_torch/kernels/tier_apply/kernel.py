@@ -20,7 +20,7 @@ from repro_torch.kernels.tier_apply.ref import (POLICY_CODES,
 
 TILE = 256    # lanes a scan tile (csrc/tier_apply.cu, TA_TILE)
 BLOCK_TEAM = 32        # the membership team in the block layout
-LEVEL_TEAM_MAX = 16    # the widest membership team in the level layout
+LEVEL_TEAMS = (16, 8, 4, 2, 1)   # the level layout's membership teams
 
 
 def scan_state_words(k: int) -> int:
@@ -35,16 +35,10 @@ def member_team(k: int, layout: str, sms: int, slots) -> int:
     `sms` SMs; `slots(team)` is the resident threads an SM of the level
     layout's instance for `team`. The block layout's node counts read 128
     keys a node, so its team is a warp. The level layout's walk runs on
-    one thread of the team; a wider team searches the bucket row and the
-    spill runs in fewer rounds, but it pays only while all k teams are
-    resident at once: the widest power of two up to LEVEL_TEAM_MAX whose
-    are, else 1."""
+    one thread of the team: `cuda.team_width` over LEVEL_TEAMS."""
     if layout == "block":
         return BLOCK_TEAM
-    team = LEVEL_TEAM_MAX
-    while team > 1 and k * team > sms * slots(team):
-        team //= 2
-    return team
+    return cuda.team_width(k, LEVEL_TEAMS, sms, slots)
 
 
 @functools.lru_cache(maxsize=None)
