@@ -22,7 +22,14 @@ is non-zero and no result line is printed):
    a spill tier of empty runs, one run and 64 runs (a run of one cell, a
    run of tombstones), on a warm tier with a ragged last node;
    bskiplist_walk on the walk's edge states at 1, 33 and 4,097 lanes and
-   at the widest plan of every team width its rule picks;
+   at the widest plan of every team width its rule picks; hash_probe
+   (rows of 16 and 5 columns: hits at the first and last columns, a key
+   held twice, full and empty rows, slots below 0 and past M - 1, KEY_INF
+   queries) and splitorder_probe (rows of 512 and 300 cells: queries
+   below and above every rk, the full and the empty table, tables -1 and
+   T, the 5-cell collision run, KEY_INF rk, windows that clip at C2 - 1)
+   at 1, 33 and 4,097 lanes and the widest plan of every width their
+   rules pick, each under its rule and forced to every width;
    tier_apply in both layouts under none / lru / size at 1, 777 and
    65,536 lanes (mixed keys, every lane in one slot, key and slot runs
    across the scan's tiles), eviction caps 0, 1 and K, with no spill
@@ -90,8 +97,10 @@ is non-zero and no result line is printed):
    lane, a served pop plan on the scheduler's 1,024-entry heap), and
    skiplist_search, bskiplist_walk, hash_probe and splitorder_probe at
    4,096 and 65,536 lanes beside their library calls, each launch apart
-   (`split_ms`), beside each shape's bound (`shapes_only` runs these
-   timings alone, on whichever port `repro_torch` imports).
+   (`split_ms`), beside each shape's bound, and skiplist_search at the
+   served pq plans' 1 and 4 lanes on that heap (`shapes_only` runs these
+   timings alone, on whichever port `repro_torch` imports; `widths_only`
+   times hash_probe and splitorder_probe at every team width).
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
    lanes) across the 256 chips of its 16x16 mesh folded onto one card,
    i.e. capacity 2^24. A seeded stream — a preload of 0.75 * 2^24 fresh
@@ -827,13 +836,12 @@ def shape_row(torch, fn, bnd):
 
 def print_shapes(tier_rows, pq_rows, probe_rows):
     """The `kernel` lines of every shape the main path calls tier_apply,
-    tier_find and pq_pop with, and of the single probes at both plan
-    widths (`probe_rows`)."""
+    tier_find and pq_pop with (skiplist_search's served shape among the
+    pq rows), and of the single probes at both plan widths
+    (`probe_rows`)."""
     for (kern, layout, label, lanes), r in tier_rows.items():
         print_shape(f"{kern}/{layout}", f"{label}, {lanes} lanes", r)
-    for label, r in pq_rows.items():
-        print_shape("pq_pop", label, r)
-    for (name, label), r in probe_rows.items():
+    for (name, label), r in list(pq_rows.items()) + list(probe_rows.items()):
         print_shape(name, label, r)
 
 
@@ -940,25 +948,30 @@ def tier_shapes(torch, rng, keys, t3, t2):
     return rows
 
 
-def probe_rows(torch, rng, keys, flat, table):
+def probe_rows(torch, rng, keys, flat, table, forced: bool = False):
     """skiplist_search, bskiplist_walk, hash_probe and splitorder_probe at
     the main path's two plan widths: a workload plan of WL_LANES lanes
     (3/4 stored keys) and a preload plan of PRELOAD_LANES fresh keys, on
     the main path's states, each checked against its plain version and
     its bound's replay, timed beside its bound and its library call
     (`torch.searchsorted` of the ordered terminal keys for the two walks,
-    grouped by table for splitorder_probe; none for hash_probe). Returns
-    the rows keyed by (name, shape label)."""
+    grouped by table for splitorder_probe; none for hash_probe). With
+    `forced`, hash_probe and splitorder_probe also run forced to each of
+    their team widths (`forced_team`), each checked and timed again, in
+    rows labelled with the width. Returns the rows keyed by (name, shape
+    label)."""
     from repro_torch.core.bits import bitrev64, from_u64, hash64, ordered
     from repro_torch.core.layout import (bskiplist_layout, hash_slot,
                                          skiplist_layout)
     from repro_torch.core.splitorder import _table_of
     from repro_torch.kernels.bskiplist_walk.kernel import bskiplist_walk_tiles
     from repro_torch.kernels.bskiplist_walk.ref import bskiplist_walk_ref
+    from repro_torch.kernels.hash_probe import kernel as hpk
     from repro_torch.kernels.hash_probe.kernel import hash_probe_tiles
     from repro_torch.kernels.hash_probe.ref import hash_probe_ref
     from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
     from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
+    from repro_torch.kernels.splitorder_probe import kernel as sok
     from repro_torch.kernels.splitorder_probe.kernel import \
         splitorder_probe_tiles
     from repro_torch.kernels.splitorder_probe.ref import splitorder_probe_ref
@@ -969,9 +982,11 @@ def probe_rows(torch, rng, keys, flat, table):
                                    dtype=np.uint64), DEV)}
     rows = {}
 
-    def row(name, shape, fn, ref, replay, stream, library=None, cap=None):
+    def row(name, shape, fn, ref, replay, stream, library=None, cap=None,
+            module=None):
         got = fn()
-        check(max_abs_err(torch, got, ref()) == 0,
+        want = ref()
+        check(max_abs_err(torch, got, want) == 0,
               f"{name} ({shape}) differs from its plain version")
         reads = Reads()
         check(max_abs_err(torch, got, replay(reads)) == 0,
@@ -983,6 +998,13 @@ def probe_rows(torch, rng, keys, flat, table):
         r["library_ms"] = None if library is None else median_ms(torch,
                                                                  library)
         rows[(name, shape)] = r
+        for team in module.TEAMS if forced and module is not None else ():
+            with forced_team(module, "probe_team", team):
+                check(max_abs_err(torch, fn(), want) == 0,
+                      f"{name} ({shape}, team {team}) differs from its "
+                      f"plain version")
+                rows[(name, f"{shape}, team {team}")] = shape_row(torch, fn,
+                                                                  bnd)
         return r
 
     lay, blay = skiplist_layout(flat), bskiplist_layout(flat)
@@ -1007,7 +1029,7 @@ def probe_rows(torch, rng, keys, flat, table):
             lambda: hash_probe_ref(q, slots, table.keys),
             lambda reads: bucket_reads(torch, reads, q, slots, table.keys,
                                        False),
-            T * (8 + 4 + 1 + 4))
+            T * (8 + 4 + 1 + 4), module=hpk)
     del lay, blay, oterm
     h, _, _ = build_splitorder(torch, rng)
     orf = ordered(h.rk)
@@ -1019,7 +1041,7 @@ def probe_rows(torch, rng, keys, flat, table):
             lambda: splitorder_probe_ref(*args),
             lambda reads: so_reads(torch, reads, *args),
             q.numel() * (8 + 8 + 4 + 1 + 4),
-            lambda: torch.searchsorted(orf, grouped))
+            lambda: torch.searchsorted(orf, grouped), module=sok)
     del h, orf
     torch.cuda.empty_cache()
     return rows
@@ -1065,8 +1087,10 @@ def pq_shapes(torch, rng, heap, ranks, m8):
     given ranks on the 2^PQ_LOG2_CAPACITY heap with its head tombstone
     run), a preload plan (PRELOAD_LANES lanes, no pop lane) on the same
     heap, and a served pop plan (SERVE_PQ_LANES lanes, ranks 0..) on a
-    heap of the serving scheduler's capacity. Each is checked against its plain
-    version first. Returns the rows keyed by shape."""
+    heap of the serving scheduler's capacity; then skiplist_search at the
+    served plans' find shape on that heap (`serve_search_rows`). Each is
+    checked against its plain version first. Returns the rows keyed by
+    (kernel, shape)."""
     from repro_torch.core.layout import skiplist_layout
     from repro_torch.kernels.pq_pop.kernel import pq_pop_tiles
     from repro_torch.kernels.pq_pop.ref import pq_pop_ref
@@ -1089,8 +1113,45 @@ def pq_shapes(torch, rng, heap, ranks, m8):
         pq_reads(torch, reads, r, m, lay, got[0], got[1])
         bnd = bound(torch, reads, r.numel() * (4 + 1 + 1 + 4)
                     + 4 * len(lay.offsets))
-        rows[f"{label}, {r.numel()} lanes, {st.term_keys.numel()} cells"] = \
+        rows[("pq_pop", f"{label}, {r.numel()} lanes, "
+               f"{st.term_keys.numel()} cells")] = \
             shape_row(torch, lambda a=(r, m, lay): pq_pop_tiles(*a), bnd)
+    rows.update(serve_search_rows(torch, rng, small))
+    return rows
+
+
+def serve_search_rows(torch, rng, small):
+    """skiplist_search as the served pq plans call it: 1 and
+    SERVE_PQ_LANES lanes (the 1-4 lanes of a pop plan's find) on the
+    scheduler's heap `small`, half of them stored keys and half fresh,
+    held against its plain version and its bound's replay (`walk_reads`),
+    timed beside `torch.searchsorted` of the ordered terminal keys."""
+    from repro_torch.core.bits import from_u64, ordered
+    from repro_torch.core.layout import skiplist_layout
+    from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
+    from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
+    lay = skiplist_layout(small)
+    oterm = ordered(small.term_keys)
+    live = small.term_keys[:int(small.n_term)].cpu().numpy().view(np.uint64)
+    rows = {}
+    for lanes in (1, SERVE_PQ_LANES):
+        qn = np.where(np.arange(lanes) % 2 == 0, rng.choice(live, lanes),
+                      rng.integers(1, 2**64 - 2, lanes, dtype=np.uint64))
+        q = from_u64(qn, DEV)
+        got = skiplist_search_tiles(q, lay)
+        check(max_abs_err(torch, got, skiplist_search_ref(q, lay)) == 0,
+              f"skiplist_search (serving, {lanes} lanes) differs from its "
+              f"plain version")
+        reads = Reads()
+        check(max_abs_err(torch, got, walk_reads(torch, reads, q, lay)) == 0,
+              "skiplist_search (serving): the bound's replay differs")
+        r = shape_row(torch, lambda a=(q, lay): skiplist_search_tiles(*a),
+                      bound(torch, reads, lanes * (8 + 1 + 4)
+                            + 4 * len(lay.offsets)))
+        r["library_ms"] = median_ms(torch, lambda a=(oterm, ordered(q)):
+                                    torch.searchsorted(*a))
+        rows[("skiplist_search", f"serving, {lanes} lanes, "
+              f"{small.term_keys.numel()} cells")] = r
     return rows
 
 
@@ -1117,6 +1178,21 @@ def shapes_only(torch, seed: int) -> None:
     print_shapes(tier_rows, pq_shapes(torch, np.random.default_rng([seed, 6]),
                                       heap, ranks, pop.to(torch.int8)),
                  probes)
+
+
+def widths_only(torch, seed: int) -> None:
+    """hash_probe and splitorder_probe alone (`probe_rows` with `forced`):
+    at both plan widths under their rules and forced to each team width,
+    on the inputs `shapes_only` builds from the same seed (run it as
+    `shapes_only` is run)."""
+    rng = np.random.default_rng(seed)
+    keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)
+    del t3, t2
+    rows = probe_rows(torch, np.random.default_rng([seed, 7]), keys, flat,
+                      table, True)
+    for (name, label), r in rows.items():
+        if name in ("hash_probe", "splitorder_probe"):
+            print_shape(name, label, r)
 
 
 def build_splitorder(torch, rng):
@@ -1676,6 +1752,243 @@ def bskiplist_edge_sweep(torch, rng):
         check(n > 0, f"bskiplist edges: no case reaches {name}")
 
 
+# the redesigned single probes' edge sweeps: a bucket plane of a slot count
+# that is no power of two at the main path's width and at a ragged one;
+# split-order planes at the main path's row shape and at a ragged one
+HP_EDGE_SLOTS = 100
+HP_EDGE_BUCKETS = (16, 5)
+SO_EDGE_SHAPES = ((8, 512), (5, 300))   # (tables, C2)
+PROBE_EDGE_LANES = (1, 33, 4097)
+
+
+def probe_edge_plans(name, module, sms: int, slots) -> list:
+    """(lanes, team) of a single probe's edge sweep: PROBE_EDGE_LANES and
+    the widest plan of every width its rule picks (`rule_plans`), each at
+    the rule's team; printed with each instance's resident threads."""
+    rule = functools.partial(module.probe_team, sms=sms, slots=slots)
+    print(f"{name}: resident threads an SM by team "
+          + json.dumps({w: slots(w) for w in module.TEAMS}) + "; the rule "
+          f"picks {rule(WL_LANES)} at {WL_LANES} lanes, "
+          f"{rule(PRELOAD_LANES)} at {PRELOAD_LANES}", flush=True)
+    plans = {k: rule(k) for k in PROBE_EDGE_LANES}
+    plans.update(rule_plans(rule, sms, slots, module.TEAMS))
+    return sorted(plans.items())
+
+
+def probe_edge_run(torch, module, counts, label, k, team, fn, want):
+    """Run a single probe at k lanes under its rule (which must pick
+    `team`) and forced to each of its widths, each bit for bit against
+    `want`; counts the cases, each width's and the warps with a tail."""
+    from repro_torch.kernels import cuda
+    dev = torch.device(DEV)
+    check(module.probe_team(k, cuda.sm_count(dev), functools.partial(
+        module.probe_slots, dev.index or 0)) == team,
+          f"{label}: the plan's team width")
+    for forced in (None,) + module.TEAMS:
+        if forced is None:
+            got, w = fn(), team
+        else:
+            with forced_team(module, "probe_team", forced):
+                got, w = fn(), forced
+        check(max_abs_err(torch, got, want) == 0, f"{label}, {k} lanes, "
+              f"team {w}{'' if forced else ' (rule)'} differs from its plain "
+              f"version")
+        counts["cases"] += 1
+        counts[f"team_{w}"] += 1
+        counts["warp_tail"] += int(k * w % 32 != 0)
+        counts["lanes_not_multiple_of_32"] += int(k % 32 != 0)
+
+
+def special_lanes(torch, counts, specials, want, k):
+    """Check the first min(k, len(specials)) lanes' plain results against
+    what each special lane must give, (tag, (found, col or at)), and count
+    each tag reached."""
+    n = min(k, len(specials))
+    got = [(int(f), int(c)) for f, c in zip(want[0][:n].tolist(),
+                                            want[1][:n].tolist())]
+    for (tag, expect), g in zip(specials[:n], got):
+        check(g == expect, f"edge lane {tag}: {g}, expected {expect}")
+        counts[tag] += 1
+
+
+def hash_probe_edge_table(rng, b):
+    """A [HP_EDGE_SLOTS, b] key plane (uint64), rows filled from column 0
+    with 0 to b fresh keys, KEY_INF after: row 0 full, row 1 all KEY_INF,
+    row 2 with a key at column 0, row 3 full, row 4 with one key at
+    columns 1 and b - 2, the last row full."""
+    m = HP_EDGE_SLOTS
+    plane = rng.integers(1, 2**64 - 2, (m, b), dtype=np.uint64)
+    fill = rng.integers(0, b + 1, m)
+    fill[[0, 3, m - 1]], fill[1], fill[4] = b, 0, b
+    fill[2] = max(fill[2], 1)
+    plane[np.arange(b)[None, :] >= fill[:, None]] = np.uint64(2**64 - 1)
+    plane[4, b - 2] = plane[4, 1]
+    return plane
+
+
+def hash_probe_edge_sweep(torch, rng):
+    """hash_probe held bit for bit against its plain version on
+    `hash_probe_edge_table` at each of HP_EDGE_BUCKETS, at every
+    `probe_edge_plans` width, forced to each team width too. The first
+    lanes are the edges, each checked for the result it must give: a hit
+    at column 0 and at the last column, a key held twice in a row (the
+    lowest column wins), a full row's hit and miss, an all-KEY_INF row's
+    miss, slots below 0 and past M - 1 (clipped), KEY_INF queries on an
+    all-KEY_INF and on a full row; then stored keys at their slots and
+    fresh keys. Counts the cases that reach each edge and requires every
+    count > 0."""
+    from repro_torch.core.bits import from_u64
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.hash_probe import kernel as hpk
+    from repro_torch.kernels.hash_probe.ref import hash_probe_ref
+    dev = torch.device(DEV)
+    m = HP_EDGE_SLOTS
+    plans = probe_edge_plans("hash_probe", hpk, cuda.sm_count(dev),
+                             functools.partial(hpk.probe_slots,
+                                               dev.index or 0))
+    counts = collections.Counter({f"team_{w}": 0 for w in hpk.TEAMS})
+    inf = np.uint64(2**64 - 1)
+    for b in HP_EDGE_BUCKETS:
+        plane = hash_probe_edge_table(rng, b)
+        keys = from_u64(plane.reshape(-1), DEV).reshape(m, b)
+        fresh = rng.integers(1, 2**64 - 2, 2, dtype=np.uint64)
+        specials = [  # (query, slot, tag, (found, col))
+            (plane[2, 0], 2, "hit_col_0", (1, 0)),
+            (plane[3, b - 1], 3, "hit_last_col", (1, b - 1)),
+            (plane[4, 1], 4, "lowest_of_two", (1, 1)),
+            (plane[0, b // 2], 0, "full_row_hit", (1, b // 2)),
+            (fresh[0], 0, "full_row_miss", (0, 0)),
+            (fresh[1], 1, "empty_row_miss", (0, 0)),
+            (plane[0, 1], -5, "slot_below_0", (1, 1)),
+            (plane[0, 2], -2**31, "slot_below_0", (1, 2)),
+            (plane[m - 1, b - 1], m + 7, "slot_past_m", (1, b - 1)),
+            (inf, 1, "key_inf_on_empty_row", (1, 0)),
+            (inf, 0, "key_inf_on_full_row", (0, 0))]
+        stored = np.argwhere(plane != inf)
+        for k, team in plans:
+            pick = stored[rng.integers(0, len(stored), k)]
+            qn = np.where(rng.random(k) < 0.75, plane[pick[:, 0], pick[:, 1]],
+                          rng.integers(1, 2**64 - 2, k, dtype=np.uint64))
+            sn = np.where(rng.random(k) < 0.75, pick[:, 0],
+                          rng.integers(0, m, k)).astype(np.int32)
+            n = min(k, len(specials))
+            qn[:n] = [x[0] for x in specials[:n]]
+            sn[:n] = [x[1] for x in specials[:n]]
+            q = from_u64(qn, DEV)
+            slots = torch.from_numpy(sn).to(DEV)
+            want = hash_probe_ref(q, slots, keys)
+            special_lanes(torch, counts, [(x[2], x[3]) for x in specials],
+                          want, k)
+            probe_edge_run(torch, hpk, counts, f"hash_probe edges: B {b}",
+                           k, team,
+                           lambda a=(q, slots, keys): hpk.hash_probe_tiles(
+                               *a), want)
+            counts["hits"] += int(want[0].sum())
+            counts["ragged_bucket"] += int(b != 16)
+    print("hash_probe edges: bit-identical in " + json.dumps(counts),
+          flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"hash_probe edges: no case reaches {name}")
+
+
+def splitorder_edge_planes(torch, rng, n_tables, c2):
+    """rk and key planes [n_tables, c2] (int64 on the card, and the rk and
+    keys as uint64): table 0 full, table 1 empty (KEY_INF), the rest 3/4
+    full, each row sorted by rk with KEY_INF padding last; in table 2 a run
+    of 5 cells sharing one rk at c2 // 4, and table 0's last 3 cells
+    sharing one rk, their keys all different."""
+    from repro_torch.core.bits import from_u64
+    inf = np.uint64(2**64 - 1)
+    rk = np.sort(rng.integers(1, 2**64 - 2, (n_tables, c2), dtype=np.uint64),
+                 axis=1)
+    keys = rng.integers(1, 2**64 - 2, (n_tables, c2), dtype=np.uint64)
+    fill = np.full(n_tables, 3 * c2 // 4)
+    fill[0], fill[1] = c2, 0
+    pad = np.arange(c2)[None, :] >= fill[:, None]
+    rk[pad], keys[pad] = inf, inf
+    a = c2 // 4
+    rk[2, a:a + 5] = rk[2, a]
+    rk[0, c2 - 3:] = rk[0, c2 - 3]
+    dev = lambda x: from_u64(x.reshape(-1), DEV).reshape(n_tables, c2)
+    return dev(rk), dev(keys), rk, keys, fill
+
+
+def splitorder_edge_sweep(torch, rng):
+    """splitorder_probe held bit for bit against its plain version on
+    `splitorder_edge_planes` at each of SO_EDGE_SHAPES, at every
+    `probe_edge_plans` width, forced to each team width too. The first
+    lanes are the edges, each checked for the result it must give: a query
+    below every rk of a table and above every rk of it, a hit in the full
+    table and a query of the empty table, table indices -1 and T
+    (clipped), the 5 lanes of the collision run (the first 4 found in the
+    window, the 5th not), KEY_INF rk queries (the empty table's padding
+    cell matches a KEY_INF key), and positions within 3 cells of C2 - 1,
+    where the window clips (a hit behind a clipped cell, and a query past
+    the full table's last rk); then stored (rk, key, table) triples and
+    fresh ones. Counts the cases that reach each edge and requires every
+    count > 0."""
+    from repro_torch.core.bits import from_u64
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.splitorder_probe import kernel as sok
+    from repro_torch.kernels.splitorder_probe.ref import splitorder_probe_ref
+    dev = torch.device(DEV)
+    plans = probe_edge_plans("splitorder_probe", sok, cuda.sm_count(dev),
+                             functools.partial(sok.probe_slots,
+                                               dev.index or 0))
+    counts = collections.Counter({f"team_{w}": 0 for w in sok.TEAMS})
+    inf, top = np.uint64(2**64 - 1), np.uint64(2**64 - 2)
+    for n_tables, c2 in SO_EDGE_SHAPES:
+        rk_t, keys_t, rk, keys, fill = splitorder_edge_planes(
+            torch, rng, n_tables, c2)
+        a, e, last = c2 // 4, c2 - 3, n_tables - 1
+        fresh = rng.integers(1, 2**64 - 2, 4, dtype=np.uint64)
+        specials = [  # (rk, key, table, tag, (found, at))
+            (np.uint64(0), fresh[0], 3, "below_every_rk", (0, 0)),
+            (top, fresh[1], 3, "above_every_rk", (0, int(fill[3]))),
+            (rk[0, c2 // 2], keys[0, c2 // 2], 0, "full_table_hit",
+             (1, c2 // 2)),
+            (fresh[2], fresh[3], 1, "empty_table_miss", (0, 0)),
+            (rk[0, 5], keys[0, 5], -1, "table_minus_1", (1, 5)),
+            (rk[last, 7], keys[last, 7], n_tables, "table_T", (1, 7))]
+        specials += [(rk[2, a], keys[2, a + j], 2, f"collision_{j}",
+                      (1, a + j) if j < 4 else (0, a)) for j in range(5)]
+        specials += [
+            (inf, inf, 1, "key_inf_rk_padding_match", (1, 0)),
+            (inf, fresh[0], 3, "key_inf_rk_miss", (0, int(fill[3]))),
+            (rk[0, e], keys[0, c2 - 1], 0, "window_clips_hit", (1, c2 - 1)),
+            (rk[0, e], fresh[1], 0, "window_clips_miss", (0, e)),
+            (top, fresh[2], 0, "past_last_rk_of_full_table", (0, c2 - 1))]
+        stored = np.argwhere(rk != inf)
+        for k, team in plans:
+            pick = stored[rng.integers(0, len(stored), k)]
+            hit = rng.random(k) < 0.75
+            qr = np.where(hit, rk[pick[:, 0], pick[:, 1]],
+                          rng.integers(1, 2**64 - 2, k, dtype=np.uint64))
+            qk = np.where(hit, keys[pick[:, 0], pick[:, 1]],
+                          rng.integers(1, 2**64 - 2, k, dtype=np.uint64))
+            tb = np.where(hit, pick[:, 0],
+                          rng.integers(0, n_tables, k)).astype(np.int32)
+            n = min(k, len(specials))
+            qr[:n] = [x[0] for x in specials[:n]]
+            qk[:n] = [x[1] for x in specials[:n]]
+            tb[:n] = [x[2] for x in specials[:n]]
+            args = (from_u64(qr, DEV), from_u64(qk, DEV),
+                    torch.from_numpy(tb).to(DEV), rk_t, keys_t)
+            want = splitorder_probe_ref(*args)
+            special_lanes(torch, counts, [(x[3], x[4]) for x in specials],
+                          want, k)
+            probe_edge_run(torch, sok, counts, f"splitorder_probe edges: "
+                           f"{n_tables} x {c2}", k, team,
+                           lambda a=args: sok.splitorder_probe_tiles(*a),
+                           want)
+            counts["hits"] += int(want[0].sum())
+            counts["ragged_row"] += int(c2 & (c2 - 1) != 0)
+    print("splitorder_probe edges: bit-identical in " + json.dumps(counts),
+          flush=True)
+    for name, n in counts.items():
+        check(n > 0, f"splitorder_probe edges: no case reaches {name}")
+
+
 def pq_edge_heaps(torch, rng):
     """Heaps for pq_pop's edges, each (label, state): at each of
     PQ_EDGE_CAPS cells, one nearly full (its last live cell in the last
@@ -1816,6 +2129,8 @@ def kernel_phase(torch, seed: int):
     tier_apply_edge_sweep(torch, np.random.default_rng([seed, 3]))
     tier_find_edge_sweep(torch, np.random.default_rng([seed, 8]))
     bskiplist_edge_sweep(torch, np.random.default_rng([seed, 9]))
+    hash_probe_edge_sweep(torch, np.random.default_rng([seed, 10]))
+    splitorder_edge_sweep(torch, np.random.default_rng([seed, 11]))
     pq_edge_sweep(torch, np.random.default_rng([seed, 4]))
     rng = np.random.default_rng(seed)
     keys, flat, table, t3, t2 = build_kernel_inputs(torch, rng)

@@ -1,14 +1,15 @@
 // Shared device-side probe bodies of the store kernels (sm_90a).
 //
 // The reference Pallas kernels share their bodies the same way:
-// `bucket_probe` (kernels/hash_probe), `level_walk` (kernels/skiplist_search),
-// `block_walk` (kernels/bskiplist_walk, here `TeamBlockWalk`) and
-// `spill_run_probe` (kernels/tier_find, here `team_spill_probe`) are each
-// written once and reused by the fused tier kernels and the pq pop. The team bodies at the end (`team_bucket_row`,
-// `team_spill_probe`, `TeamBlockWalk`) serve one query with a team of lanes
-// and give the same results; the walks are steppers (`LevelWalk`,
-// `TeamBlockWalk`), so a kernel can run a walk's rounds inside the spill
-// search's. Keys arrive as int64 bit patterns and
+// `bucket_probe` (kernels/hash_probe, here `team_bucket_row`), `level_walk`
+// (kernels/skiplist_search), `block_walk` (kernels/bskiplist_walk, here
+// `TeamBlockWalk`) and `spill_run_probe` (kernels/tier_find, here
+// `team_spill_probe`) are each written once and reused by the fused tier
+// kernels and the pq pop. The team bodies at the end (`team_bucket_row`,
+// `team_kary_search`, `team_spill_probe`, `TeamBlockWalk`) serve one query
+// with a team of lanes and give the same results as one thread; the walks
+// are steppers (`LevelWalk`, `TeamBlockWalk`), so a kernel can run a walk's
+// rounds inside a search's. Keys arrive as int64 bit patterns and
 // are compared here as unsigned 64-bit integers: the card has native u64
 // compares, so the TPU's (hi, lo) u32 split does not exist on this side.
 //
@@ -28,6 +29,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef unsigned long long u64;
 
 #define KEY_INF_U64 0xFFFFFFFFFFFFFFFFull
@@ -36,21 +39,6 @@ typedef unsigned long long u64;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// Fixed-hash bucket probe: first column of row `slot` (clipped to [0, m-1])
-// holding `q`. Returns hit; *col = first hit column, 0 on a miss.
-__device__ __forceinline__ bool bucket_probe(u64 q, int slot, const u64* keys,
-                                             int m, int b, int* col) {
-  const u64* row = keys + (long long)clampi(slot, 0, m - 1) * b;
-  for (int j = 0; j < b; ++j) {
-    if (row[j] == q) {
-      *col = j;
-      return true;
-    }
-  }
-  *col = 0;
-  return false;
 }
 
 // The first of a row's 4 candidates with q <= key, 0 when none is.
@@ -291,16 +279,18 @@ __device__ __forceinline__ Team<TEAM> this_team(bool live) {
   return t;
 }
 
-// Bit j = p on team lane j.
+// Bit j = p on team lane j (a team of one lane needs no ballot).
 template <int TEAM>
 __device__ __forceinline__ unsigned team_ballot(const Team<TEAM>& t, bool p) {
+  if constexpr (TEAM == 1) return p ? 1u : 0u;
   return (__ballot_sync(t.warp, p) >> t.base) & Team<TEAM>::BITS;
 }
 
 // The bucket row of `slot` (clipped to [0, m - 1]) in one round: each lane
-// reads its columns (b <= MAX_BUCKET). Returns the columns holding q (bit
-// j; `bucket_probe` hits iff it is non-zero, at its lowest bit); *empty =
-// the KEY_INF cells.
+// reads its columns (b <= MAX_BUCKET), all of them at once. Returns the
+// columns holding q (bit j; the reference `bucket_probe` hits iff it is
+// non-zero, at its lowest bit); *empty = the KEY_INF cells, unless `empty`
+// is null (the hash_probe kernel), when those ballots are not made.
 template <int TEAM>
 __device__ __forceinline__ unsigned team_bucket_row(u64 q, int slot,
                                                     const u64* keys, int m,
@@ -318,9 +308,10 @@ __device__ __forceinline__ unsigned team_bucket_row(u64 q, int slot,
   for (int j = 0; j < Team<TEAM>::COLS; ++j) {
     const bool in = t.lane + j * TEAM < b;
     hits |= team_ballot(t, in && kj[j] == q) << (j * TEAM);
-    emp |= team_ballot(t, in && kj[j] == KEY_INF_U64) << (j * TEAM);
+    if (empty != nullptr)
+      emp |= team_ballot(t, in && kj[j] == KEY_INF_U64) << (j * TEAM);
   }
-  *empty = emp;
+  if (empty != nullptr) *empty = emp;
   return hits;
 }
 
@@ -349,6 +340,27 @@ __device__ __forceinline__ int kary_pivot(int lo, int n, int u, float part) {
   return lo + min((int)((float)(u + 1) * ((float)n * part)), n - 1);
 }
 
+// A team split into groups of g = TEAM / groups lanes, one search a group:
+// this lane is lane `sub` of group `grp`; `bits` masks a group's ballot
+// bits, `part` = 1 / (g + 1).
+struct KaryGroup {
+  int g, grp, sub;
+  unsigned bits;
+  float part;
+};
+
+template <int TEAM>
+__device__ __forceinline__ KaryGroup kary_group(const Team<TEAM>& t,
+                                                int groups) {
+  KaryGroup k;
+  k.g = TEAM / groups;
+  k.grp = t.lane / k.g;
+  k.sub = t.lane - k.grp * k.g;
+  k.bits = 0xffffffffu >> (32 - k.g);
+  k.part = 1.0f / (float)(k.g + 1);
+  return k;
+}
+
 // A stepper with nothing to do, for a caller with no work beside the spill
 // search.
 struct NoSide {
@@ -366,15 +378,74 @@ __device__ __forceinline__ void run_side(Side& side, const Team<TEAM>& t) {
   }
 }
 
+// A group's (g + 1)-ary search of the sorted cells keys[lo, hi) for q's
+// searchsorted-left position: it narrows [lo, hi) (the same on every lane
+// of the group) until it holds at most `stop` cells, every cell before lo
+// being below q and every cell from hi on not; with stop = 0, lo is the
+// position. Each round the group's lanes read g spaced pivots of the open
+// interval, and the count of pivots below q (a prefix of them, the cells
+// being sorted) narrows it to one of the g + 1 parts; an interval of at
+// most g cells is read whole. With ONE_GROUP (g = TEAM, the split-order
+// row's search) the pivots are integers over a constant divisor,
+// lo + (u + 1) n / (TEAM + 1), so a round costs a few integer
+// instructions and a team of one runs a plain binary search; with several
+// groups (the spill runs) g is known only at run time and the pivots are
+// `kary_pivot`'s. `side` is a stepper whose rounds run inside the
+// search's (`NoSide` for none): each round issues its loads beside the
+// pivots' and takes its result after them. Every live lane of the warp
+// calls it, and the loop runs until every group of the warp is done (a
+// team of one with no stepper has nothing to sync and loops alone).
+template <int TEAM, bool ONE_GROUP, class Side>
+__device__ __forceinline__ void team_kary_search(u64 q, const u64* keys,
+                                                 int& lo, int& hi, int stop,
+                                                 const KaryGroup& k,
+                                                 const Team<TEAM>& t,
+                                                 Side& side) {
+  auto pivot = [&](int n, int u) {
+    if constexpr (ONE_GROUP)   // (u + 1) n < 2^32 (n < 2^27, the launcher)
+      return lo + (int)((unsigned)(u + 1) * (unsigned)n / (TEAM + 1u));
+    else
+      return kary_pivot(lo, n, u, k.part);
+  };
+  // a lone lane with nothing beside its search loops on its own: a vote a
+  // round cost a one-lane split-order search 4.6% at 65,536 lanes (PERF.md)
+  auto more = [&] {
+    if constexpr (TEAM == 1 && std::is_same<Side, NoSide>::value)
+      return hi - lo > stop;
+    else
+      return __any_sync(t.warp, hi - lo > stop) != 0;
+  };
+  while (more()) {
+    side.issue();
+    const int n = hi - lo;
+    const bool open = n > stop;
+    const bool whole = n <= k.g;
+    const int p = whole ? lo + k.sub : pivot(n, k.sub);
+    const bool rd = open && (!whole || k.sub < n);
+    const u64 pk = rd ? keys[p] : 0;
+    side.take();
+    const bool lt = rd && pk < q;
+    const int cnt = __popc((team_ballot(t, lt) >> (k.grp * k.g)) & k.bits);
+    if (open) {
+      if (whole) {
+        lo += cnt;
+        hi = lo;
+      } else {
+        // the part after pivot cnt - 1 and before pivot cnt
+        const int nlo = cnt > 0 ? pivot(n, cnt - 1) + 1 : lo;
+        if (cnt < k.g) hi = pivot(n, cnt);
+        lo = nlo;
+      }
+    }
+  }
+}
+
 // Cold-tier probe by a team: the plain version's result exactly (the first
 // live match in run order wins; a miss reports the clipped searchsorted-left
 // position in run 0). The non-empty runs are split over the team: a group
 // of g = TEAM / G lanes a run, G the power of two >= n_live (at most TEAM;
 // more runs go in passes). A group runs a (g + 1)-ary search for its run's
-// searchsorted-left position: each round its lanes read g spaced pivots of
-// the open interval [lo, hi), and the count of pivots below q (a prefix of
-// them, the run being sorted) narrows the interval to one of the g + 1
-// parts; an interval of at most g cells is read whole. A 2^19-cell run
+// searchsorted-left position (`team_kary_search`). A 2^19-cell run
 // takes 12 rounds at g = 2 (16 lanes, 5 to 8 runs), against 19 for a
 // binary search (g = 1, which a team of 4 runs on 4 runs at once and a
 // team of 1 on one run after another), and the runs are searched side by
@@ -396,11 +467,8 @@ __device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
                                                  int* cell, Side& side) {
   int groups = 1;
   while (groups < n_live && groups < TEAM) groups <<= 1;
-  const int g = TEAM / groups;
-  const int grp = t.lane / g;
-  const int sub = t.lane - grp * g;
-  const unsigned gbits = 0xffffffffu >> (32 - g);
-  const float part = 1.0f / (float)(g + 1);
+  const KaryGroup kg = kary_group(t, groups);
+  const int grp = kg.grp;
   // an empty run 0 leaves its search at its start
   int miss = clampi(run_off[0], 0, s - 1);
   bool found = false;
@@ -409,38 +477,15 @@ __device__ __forceinline__ bool team_spill_probe(u64 q, bool active,
     if (!__any_sync(t.warp, active && !found)) break;
     const bool act = active && !found && r0 + grp < n_live;
     const int r = act ? live[r0 + grp] : 0;
-    int lo = act ? run_off[r] : 0;
     const int end = act ? run_off[r + 1] : 0;
-    int hi = end;
-    while (__any_sync(t.warp, lo < hi)) {
-      side.issue();
-      const int n = hi - lo;
-      const bool open = lo < hi;
-      const bool whole = n <= g;
-      const int p = whole ? lo + sub : kary_pivot(lo, n, sub, part);
-      const bool rd = open && (!whole || sub < n);
-      const u64 pk = rd ? sp_keys[p] : 0;
-      side.take();
-      const bool lt = rd && pk < q;
-      const int cnt = __popc((team_ballot(t, lt) >> (grp * g)) & gbits);
-      if (open) {
-        if (whole) {
-          lo += cnt;
-          hi = lo;
-        } else {
-          // the part after pivot cnt - 1 and before pivot cnt
-          const int nlo = cnt > 0 ? kary_pivot(lo, n, cnt - 1, part) + 1 : lo;
-          if (cnt < g) hi = kary_pivot(lo, n, cnt, part);
-          lo = nlo;
-        }
-      }
-    }
+    int lo = act ? run_off[r] : 0, hi = end;
+    team_kary_search<TEAM, false>(q, sp_keys, lo, hi, 0, kg, t, side);
     const int pos = clampi(lo, 0, s - 1);
     if (r0 == 0) {
       const int pos0 = __shfl_sync(t.warp, pos, 0, TEAM);
       if (live[0] == 0) miss = pos0;   // run 0 holds cells
     }
-    const bool hit = act && sub == 0 && lo < end && sp_keys[pos] == q &&
+    const bool hit = act && kg.sub == 0 && lo < end && sp_keys[pos] == q &&
                      sp_dead[pos] == 0;
     const unsigned hits = team_ballot(t, hit);
     // the first group that hit: the earliest run of this pass

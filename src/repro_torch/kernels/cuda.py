@@ -47,7 +47,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "skiplist_search_launch": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                                _I, _P],
-    "hash_probe_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _P],
+    "hash_probe_launch": [_P, _P, _I, _P, _I, _I, _P, _P, _I, _P],
+    "hash_probe_slots": [_I],
     "tier_find_launch": [_P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                          _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                          _P, _I, _P],
@@ -64,7 +65,9 @@ _SIGNATURES = {
     "bskiplist_walk_slots": [_I],
     "pq_pop_launch": [_P, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _I, _I, _P, _P, _I, _P],
-    "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
+    "splitorder_probe_launch": [_P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _I,
+                                _P],
+    "splitorder_probe_slots": [_I],
     "paged_attention_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
