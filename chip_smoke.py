@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the KV store, the LLM serving engine and
-hymba-1.5b's prefill and decode) on one GPU and check it.
+"""Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
+hymba-1.5b's prefill and decode, and the sharded store) on one GPU and
+check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -97,8 +98,11 @@ is non-zero and no result line is printed):
    lane, a served pop plan on the scheduler's 1,024-entry heap), and
    skiplist_search, bskiplist_walk, hash_probe and splitorder_probe at
    4,096 and 65,536 lanes beside their library calls, each launch apart
-   (`split_ms`), beside each shape's bound, and skiplist_search at the
-   served pq plans' 1 and 4 lanes on that heap (`shapes_only` runs these
+   (`split_ms`), beside each shape's bound, skiplist_search at the
+   served pq plans' 1 and 4 lanes on that heap, and skiplist_search,
+   tier_find and tier_apply at phase 6's shape, a pool of 8,192 lanes on
+   one shard (a 65,536-key skiplist, a 32,768-key tiered3 stack with
+   spill runs; `shard_shapes`) (`shapes_only` runs these
    timings alone, on whichever port `repro_torch` imports; `widths_only`
    times hash_probe and splitorder_probe at every team width).
 3. Main path: `paper_kvstore`'s per-chip store (capacity 65,536, 4,096
@@ -140,9 +144,12 @@ is non-zero and no result line is printed):
    |logit|, beside planted faults of the plain attention (a page skipped
    and the new token left out must exceed that bound); check (a): f32 compute, 4 trace prompts
    x 16 tokens, each engine token the contiguous `prefill` +
-   `decode_step`'s argmax unless its top-2 margin is below 1e-3. Prints
-   decode tokens/s, ms per decode step, prefill tokens/s, batch fill and
-   the prefix hit rate.
+   `decode_step`'s argmax unless its top-2 margin is below 1e-3. Then the
+   fault path: the same trace on a new engine with a `FaultPlan` that
+   drops the scheduler's store at engine steps 2, 40 and 120; the
+   journaled scheduler recovers each, and every request's tokens equal
+   the fault-free run's. Prints decode tokens/s, ms per decode step,
+   prefill tokens/s, batch fill and the prefix hit rate.
 5. hymba: hymba-1.5b at full width and depth (32 layers, seeded f32
    parameters and a bf16 copy, attn_impl "xla_flash", exec mode gpu):
    8 prompts of 4,096 tokens prefilled, then 32 greedy decode steps;
@@ -158,7 +165,31 @@ is non-zero and no result line is printed):
    the torch-mode prefill one token short must exceed) and every gpu
    token the argmax of a torch-mode teacher-forced `forward` unless its top-2
    margin is below 1e-3.
-6. The calls by shape of the store kernels over phases 3-5, a `kernels`
+6. The sharded store (paper §VI): the production single-pod mesh (16, 16)
+   ("data", "model") folded onto the card, `paper_kvstore`'s 65,536 keys
+   and 4,096 lanes a shard (2^20 lanes a step), pool factor 2, through
+   `store.engine.StoreEngine`: 12 preload steps of fresh inserts in exec
+   mode gpu, then one Workload 1 and one Workload 2 step in modes gpu
+   and torch (the torch engine from the gpu state after the preload:
+   the per-shard loop is host-bound, so this keeps the script inside its
+   limit), keys uniform over u64. det_skiplist (2^24 keys in all) and
+   obs:tiered3/lru (32,768 a shard, so the preload spills): no lane
+   dropped at any step, gpu == torch on the workload steps and the final
+   states, every lane == a dict oracle (run in a worker process), the
+   summed sizes == the oracle's live count; shards
+   0, 17 and 255 rebuilt from the init snapshot over the whole journal
+   (`resilience.rebuild_shard`) equal the engine's. The route and route
+   back timed apart; the range step over det_skiplist (64 valid ranges a
+   shard) == `np.searchsorted` over the oracle's live keys. Then
+   `ResilientEngine` over obs:tiered3/lru on the workload steps from the
+   post-preload state, a snapshot every 4 steps: in sync mode with two
+   shard drops, a poisoned lane and a stall the results, the final
+   `state_digest` and the per-shard metrics equal the tier cell's own
+   (fault-free) run's; in degraded mode with a shard drop the healthy
+   lanes and the deferred lanes' completions equal it. Prints ms a step by backend and mode,
+   launches a step, the syncs of a workload step (torch's sync debug
+   mode), the snapshot's ms and bytes and the recoveries' ms.
+7. The calls by shape of the store kernels over phases 3-6, a `kernels`
    JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
@@ -260,6 +291,9 @@ SERVE_TRACE = dict(n_requests=64, page_size=SERVE_PAGE, vocab=151936,
                    suffix_lens=(16, 128, 512), max_new=(32, 64),
                    inversion_every=6)
 SERVE_MAX_TICKS = 2000
+# the fault path: the same trace again with the scheduler's store dropped
+# at these engine steps (`Engine(fault_plan=...)`), tokens == fault-free
+SERVE_FAULT_STEPS = (2, 40, 120)
 # kernels the served run must launch: the decode attention, the
 # scheduler's pq pop and the prefix cache's fused tier probes
 SERVE_KERNELS = ("paged_attention", "pq_pop", "tier_find/level",
@@ -322,6 +356,35 @@ HYMBA_FAULTS = ("window ignored", "ssm state reset", "conv state reset")
 HYMBA_A_PROMPTS = 2
 HYMBA_A_MARGIN = 1e-3
 HYMBA_A_CACHE_TOL = {"k": 2e-2, "v": 2e-2, "conv": 5e-3, "ssm": 5e-3}
+# phase 6, the sharded store: the production single-pod mesh
+# (`launch/mesh.py`: (16, 16) ("data", "model")) folded onto one card, a
+# `paper_kvstore` store of 65,536 keys and 4,096 lanes a shard, pool
+# factor 2; 12 preload steps of 2^20 fresh inserts (0.75 * 2^24 keys), then
+# SHARD_WL_STEPS steps of Workload 1 and of Workload 2 at 2^20 lanes. The
+# per-shard loop is host-bound: 2.2-3.9 s a step over det_skiplist and
+# 10-19 s over tiered3/lru in mode gpu, 2.6-4.7 and 12-23 s in mode torch,
+# on the H100 machines' hosts (PERF.md §6). So the preload runs in mode
+# gpu only, the torch engine starts from its end state, and one step of
+# each workload runs (not 4): the script stays inside its time limit
+SHARD_AXES = ("data", "model")
+SHARD_SIZES = (16, 16)
+SHARD_CAP = 65536
+SHARD_LANES = 4096
+SHARD_POOL_FACTOR = 2
+SHARD_PRELOAD_STEPS = 12
+SHARD_WL_STEPS = 1
+SHARD_TIER_CAP = 32768      # tiered3/lru a shard, half: the preload spills
+# the tier cell runs observed: its workload steps are the fault-free run
+# the resilience checks compare with
+SHARD_CELLS = (("det_skiplist", SHARD_CAP, ("skiplist_search",)),
+               ("obs:tiered3/lru", SHARD_TIER_CAP,
+                ("tier_find/level", "tier_apply/level")))
+SHARD_RESIDENCY = (0, 17, 255)
+SHARD_RANGES = 64           # valid range lanes a shard
+SHARD_RANGE_MAX_OUT = 8
+SHARD_SNAPSHOT_EVERY = 4
+SHARD_SYNC_DROPS = ((1, 17), (1, 200))   # (workload step, shard)
+SHARD_DEGRADED_DROP = (1, 99)
 SIGN = -(1 << 63)           # u64 order = signed order of x ^ SIGN
 INF_ORDERED = (1 << 63) - 1  # KEY_INF in that order
 SECTOR = 32                 # bytes: the smallest HBM transfer
@@ -1155,6 +1218,56 @@ def serve_search_rows(torch, rng, small):
     return rows
 
 
+def shard_shapes(torch, rng):
+    """skiplist_search, tier_find and tier_apply at the sharded store's
+    shape (phase 6): a pool of SHARD_LANES * SHARD_POOL_FACTOR lanes
+    (3/4 stored keys) on one shard, a 3/4-full skiplist of SHARD_CAP keys
+    and a tiered3 stack of SHARD_TIER_CAP with spill runs (the level
+    layout, as the shard's `tiered3/lru` runs it). Each is checked
+    against its plain version and its bound's replay, timed beside its
+    bound (and skiplist_search beside `torch.searchsorted`). Returns
+    (tier rows keyed as `tier_shapes`'s, probe rows keyed as
+    `probe_rows`')."""
+    from repro_torch.core import det_skiplist as dsl
+    from repro_torch.core.bits import from_u64, ordered
+    from repro_torch.core.layout import skiplist_layout
+    from repro_torch.kernels.skiplist_search.kernel import skiplist_search_tiles
+    from repro_torch.kernels.skiplist_search.ref import skiplist_search_ref
+    pool = SHARD_LANES * SHARD_POOL_FACTOR
+    n = 3 * SHARD_CAP // 4
+    keys = rng.permutation(np.unique(rng.integers(
+        1, 2**64 - 2, 2 * SHARD_CAP, dtype=np.uint64)))
+    tk = from_u64(keys[:n], DEV)
+    shard = dsl.skiplist_init(SHARD_CAP, device=DEV)
+    shard, _, _ = dsl.insert_batch(shard, tk, tk ^ 0x5A5A)
+    lay = skiplist_layout(shard)
+    q = from_u64(mixed_keys(rng, keys[:n], pool), DEV)
+    got = skiplist_search_tiles(q, lay)
+    check(max_abs_err(torch, got, skiplist_search_ref(q, lay)) == 0,
+          "skiplist_search (sharded pool) differs from its plain version")
+    reads = Reads()
+    check(max_abs_err(torch, got, walk_reads(torch, reads, q, lay)) == 0,
+          "skiplist_search (sharded pool): the bound's replay differs")
+    r = shape_row(torch, lambda: skiplist_search_tiles(q, lay),
+                  bound(torch, reads, pool * (8 + 1 + 4)
+                        + 4 * len(lay.offsets)))
+    oq, oterm = ordered(q), ordered(shard.term_keys)
+    r["library_ms"] = median_ms(torch, lambda: torch.searchsorted(oterm, oq))
+    probes = {("skiplist_search", f"sharded pool, {pool} lanes, "
+               f"{SHARD_CAP}-key shard"): r}
+    del shard, lay
+    t3 = build_tier_stack(torch, rng, from_u64(keys, DEV), SHARD_TIER_CAP)
+    tq = from_u64(mixed_keys(rng, keys[:SHARD_TIER_CAP], pool), DEV)
+    vals = from_u64(rng.integers(0, 2**64 - 1, pool, dtype=np.uint64), DEV)
+    tiers_ = {}
+    tier_rows(torch, tiers_, t3, f"sharded pool, {SHARD_TIER_CAP}-key "
+              f"tiered3 shard, spill", tq, vals,
+              torch.ones(pool, dtype=torch.bool, device=DEV), ("level",))
+    del t3
+    torch.cuda.empty_cache()
+    return tiers_, probes
+
+
 def shapes_only(torch, seed: int) -> None:
     """The per-shape timing alone, on the port that `repro_torch` imports
     (e.g. `PYTHONPATH=<tree>/src python3 -c 'import chip_smoke, torch;
@@ -1171,6 +1284,10 @@ def shapes_only(torch, seed: int) -> None:
                         table)
     del flat, table
     torch.cuda.empty_cache()
+    more_tiers, more_probes = shard_shapes(torch,
+                                           np.random.default_rng([seed, 12]))
+    tier_rows.update(more_tiers)
+    probes.update(more_probes)
     heap = build_pq_heap(torch, rng)
     T = WL_LANES
     pop = torch.from_numpy(rng.permutation(T) < T // 2).to(DEV)
@@ -2311,6 +2428,10 @@ def kernel_phase(torch, seed: int):
                         table)
     del flat, table
     torch.cuda.empty_cache()
+    more_tiers, more_probes = shard_shapes(torch,
+                                           np.random.default_rng([seed, 12]))
+    shapes.update(more_tiers)
+    probes.update(more_probes)
 
     # pq_pop: a heap with a tombstone run at its head; a plan's pop lanes
     # (ranks 0..T/2-1 in a seeded lane order, the rest masked off), then
@@ -3043,29 +3164,34 @@ def make_stream(seed: int):
 def dict_oracle(plans):
     """Host-side reference semantics, sharing no code with the port:
     inserts (insert-if-absent, first lane wins), then deletes, then finds.
-    Returns per plan (ok bool[K], vals uint64[K])."""
+    Returns (per plan (ok bool[K], vals uint64[K]), the live dict)."""
     d = {}
     out = []
     for _, ops, keys, vals in plans:
         ok = np.zeros(len(ops), bool)
         res = np.zeros(len(ops), np.uint64)
-        kl, vl = keys.tolist(), vals.tolist()
-        for i in np.flatnonzero(ops == OP_INSERT).tolist():
-            if kl[i] in d:
-                ok[i], res[i] = True, 1
-            else:
-                d[kl[i]] = vl[i]
-                ok[i] = True
-        for i in np.flatnonzero(ops == OP_DELETE).tolist():
-            if kl[i] in d:
-                del d[kl[i]]
-                ok[i] = True
-        for i in np.flatnonzero(ops == OP_FIND).tolist():
-            v = d.get(kl[i])
-            if v is not None:
-                ok[i], res[i] = True, v
+        ins = np.flatnonzero(ops == OP_INSERT)
+        ik, iv = keys[ins], vals[ins]
+        # a key's first insert lane inserts it unless the dict holds it;
+        # every later lane of that key finds it present
+        first = np.zeros(ins.size, bool)
+        first[np.unique(ik, return_index=True)[1]] = True
+        new = first.copy()
+        new[first] = [k not in d for k in ik[first].tolist()]
+        d.update(zip(ik[new].tolist(), iv[new].tolist()))
+        ok[ins] = True
+        res[ins[~new]] = 1
+        dels = np.flatnonzero(ops == OP_DELETE)
+        ok[dels] = [d.pop(k, None) is not None
+                    for k in keys[dels].tolist()]
+        finds = np.flatnonzero(ops == OP_FIND)
+        got = [d.get(k) for k in keys[finds].tolist()]
+        hit = np.asarray([v is not None for v in got], bool)
+        ok[finds[hit]] = True
+        res[finds[hit]] = np.asarray([v for v in got if v is not None],
+                                     np.uint64)
         out.append((ok, res))
-    return out, len(d)
+    return out, d
 
 
 def make_pq_stream(seed: int):
@@ -3217,17 +3343,19 @@ def calls_by_shape(shapes) -> dict:
 
 
 def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
-    """Drive one cell: every plan through a `StoreEngine` per exec mode,
-    gpu == torch per plan and on the final state, `on_plan(p, ok, vals,
-    state)` on the gpu results (numpy) and state. The launch counts are
+    """Drive one cell: every plan through a one-shard `StoreEngine` per
+    exec mode, gpu == torch per plan and on the final state, `on_plan(p,
+    ok, vals, state)` on the gpu results (numpy) and the shard's state. The launch counts are
     set to 0 just before the cell and read just after. Returns (report
     row, final states by mode, stats, launches)."""
     from repro_torch.kernels import cuda
     from repro_torch.store import exec as exec_
-    from repro_torch.store.engine import StoreEngine
+    from repro_torch.store.engine import LOCAL_MESH, StoreEngine
     t_be = time.perf_counter()
     widths = sorted({ops.shape[0] for _, ops, _, _ in dev_plans})
-    engines = {(m, w): StoreEngine(w, backend, device=DEV, exec_mode=m)
+    engines = {(m, w): StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, w,
+                                   backend, pool_factor=1, exec_mode=m,
+                                   device=DEV)
                for m in modes for w in widths}
     states = {m: engines[(m, widths[0])].init(cap) for m in modes}
     secs = {(m, t): 0.0 for m in modes for t in ("preload", "wl")}
@@ -3255,7 +3383,7 @@ def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
                   and torch.equal(res["gpu"][1], res["torch"][1]),
                   f"{label} plan {p}: gpu != torch")
         on_plan(p, res["gpu"][0].cpu().numpy(),
-                res["gpu"][1].cpu().numpy().view(np.uint64), states["gpu"])
+                res["gpu"][1].cpu().numpy().view(np.uint64), states["gpu"][0])
     torch.cuda.synchronize()
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     # tier_apply and pq_pop: one call on every plan, in launches a call
@@ -3270,7 +3398,7 @@ def run_cell(torch, label, backend, cap, modes, dev_plans, on_plan):
     if "torch" in modes:
         check(leaves_equal(torch, states["gpu"], states["torch"]),
               f"{label}: final state gpu != torch")
-    stats = {k: int(v) for k, v in
+    stats = {k: int(v[0]) for k, v in
              engines[("gpu", widths[0])].stats(states["gpu"]).items()
              if k != "seq"}
     row = {"capacity": cap, "stats": {k: v for k, v in stats.items() if v}}
@@ -3374,8 +3502,8 @@ def main_path(torch, plans, oracle, n_live, pq_plans, pq_expect, pq_final):
             print(f"rand_skiplist: the walk missed {sum(wl)} stored keys in "
                   f"{sum(int((pl[1] == OP_FIND).sum()) for pl in plans)} "
                   f"FIND lanes (per workload plan: {wl}); forced promotions "
-                  f"{int(states['gpu'].forced)}, level counts "
-                  f"{states['gpu'].level_count.tolist()}", flush=True)
+                  f"{int(states['gpu'][0].forced)}, level counts "
+                  f"{states['gpu'][0].level_count.tolist()}", flush=True)
         del states
         torch.cuda.empty_cache()
     del dev_plans
@@ -3547,7 +3675,9 @@ def serving_phase(torch, seed: int):
     parameters, bf16 compute, served by `Engine` (max_reqs 32, 4,096 pages
     of 16 tokens, 128 pages a request) on the `make_trace` trace of 64
     requests, driven by `replay`. Launch counts are set to 0 just before
-    the served run and read just after. Returns (launches, report)."""
+    the served run and read just after. Then the trace again with the
+    scheduler's store dropped at SERVE_FAULT_STEPS: the tokens must equal
+    the fault-free run's. Returns (launches, report)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.models.model import init_params
@@ -3555,6 +3685,7 @@ def serving_phase(torch, seed: int):
     from repro_torch.serving import traffic
     from repro_torch.serving.engine import Engine
     from repro_torch.store import obs
+    from repro_torch.store.resilience import Fault, FaultPlan
     cfg = get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(seed))
@@ -3659,7 +3790,37 @@ def serving_phase(torch, seed: int):
     print(f"serving prefix hit rate: {report['prefix_hit_rate']:.4f} "
           f"({m['prefix_hits']} of {m['prefix_lookups']} pages)", flush=True)
     print(f"serving: peak {report['peak_gib']:.2f} GiB allocated", flush=True)
+    n_steps = engine.steps
     del engine, kv
+    torch.cuda.empty_cache()
+
+    # the fault path: scheduler store drops, recovered from the journal
+    check(max(SERVE_FAULT_STEPS) < n_steps, "serving: fault steps past the "
+          "run")
+    fp = FaultPlan(seed, [Fault("shard_drop", st, shard=0)
+                          for st in SERVE_FAULT_STEPS])
+    faulted = Engine(cfg, params, max_reqs=SERVE_BATCH,
+                     num_pages=SERVE_NUM_PAGES, page_size=SERVE_PAGE,
+                     max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV,
+                     fault_plan=fp)
+    t0 = time.perf_counter()
+    f_outs = traffic.replay(faulted, trace, max_steps=SERVE_MAX_TICKS)
+    torch.cuda.synchronize()
+    f_wall = time.perf_counter() - t0
+    fm = faulted.resilience_metrics()
+    check(f_outs == outs, "serving fault path: tokens differ from the "
+          "fault-free run")
+    check(fm["faults_injected"] >= len(SERVE_FAULT_STEPS)
+          and fm["recoveries"] >= len(SERVE_FAULT_STEPS)
+          and faulted.sched.res.journal.verify(), "serving fault path: "
+          "faults not all injected and recovered")
+    print(f"serving fault path: store drops at steps {SERVE_FAULT_STEPS}, "
+          f"{len(trace)} requests equal the fault-free tokens; replay "
+          f"{f_wall:.3f} s; faults_injected {fm['faults_injected']}, "
+          f"recoveries {fm['recoveries']}, replayed_ops "
+          f"{fm['replayed_ops']}, journal "
+          f"{len(faulted.sched.res.journal)} plans", flush=True)
+    del faulted
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3933,6 +4094,407 @@ def hymba_phase(torch, seed: int):
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the sharded store engine (paper §VI) on the production mesh
+# ---------------------------------------------------------------------------
+
+def make_shard_stream(seed: int):
+    """The sharded store's seeded stream of global plans of S * SHARD_LANES
+    lanes, as (tag, ops int32, keys uint64, vals uint64), keys uniform over
+    u64: SHARD_PRELOAD_STEPS plans of fresh inserts, then SHARD_WL_STEPS
+    plans of Workload 1 (10% fresh inserts, 90% finds) and of Workload 2
+    (10% inserts, 2% erases, 88% finds). Keys are distinct: splitmix64's
+    finalizer, a bijection of u64, over a seeded run of counters. The
+    finds and erases take disjoint slices of a permutation of the
+    preloaded keys, so no key repeats within a plan."""
+    rng = np.random.default_rng([seed, 6])
+    n = int(np.prod(SHARD_SIZES)) * SHARD_LANES
+    n_pre = SHARD_PRELOAD_STEPS * n
+    n_ins, n_del = n // 10, n // 50
+    n_fresh = 2 * SHARD_WL_STEPS * n_ins
+    x = (np.arange(n_pre + n_fresh, dtype=np.uint64)
+         + rng.integers(0, 2**64 - 1, dtype=np.uint64))
+    with np.errstate(over="ignore"):
+        for shift, mul in ((30, 0xBF58476D1CE4E5B9), (27, 0x94D049BB133111EB),
+                           (31, None)):
+            x ^= x >> np.uint64(shift)
+            if mul is not None:
+                x *= np.uint64(mul)
+    keys = np.where(x == np.uint64(2**64 - 1), np.uint64(1), x)  # KEY_INF
+    pre, fresh = keys[:n_pre], keys[n_pre:]
+    plans = [("preload", np.full(n, OP_INSERT, np.int32),
+              pre[i * n:(i + 1) * n],
+              rng.integers(0, 2**64 - 1, n, dtype=np.uint64))
+             for i in range(SHARD_PRELOAD_STEPS)]
+    old = pre[rng.permutation(n_pre)]
+    at = f = 0
+    for wl, nd in (("wl1", 0), ("wl2", n_del)):
+        for _ in range(SHARD_WL_STEPS):
+            nf = n - n_ins - nd
+            ops = np.concatenate([np.full(n_ins, OP_INSERT, np.int32),
+                                  np.full(nd, OP_DELETE, np.int32),
+                                  np.full(nf, OP_FIND, np.int32)])
+            k = np.concatenate([fresh[f:f + n_ins], old[at:at + nd + nf]])
+            f, at = f + n_ins, at + nd + nf
+            perm = rng.permutation(n)
+            plans.append((wl, ops[perm], k[perm],
+                          rng.integers(0, 2**64 - 1, n, dtype=np.uint64)))
+    return plans
+
+
+@contextlib.contextmanager
+def counted_syncs(torch, sink: list):
+    """Count the host-device syncs of a block: torch's sync debug mode
+    warns at each synchronizing call, and the warnings are counted."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sink.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def shard_engine(torch, backend, mode):
+    from repro_torch.core.routing import ShardMesh
+    from repro_torch.store.engine import StoreEngine
+    return StoreEngine(ShardMesh(SHARD_AXES, SHARD_SIZES), SHARD_AXES,
+                       SHARD_LANES, backend, SHARD_POOL_FACTOR,
+                       exec_mode=mode, device=DEV)
+
+
+def shard_cell(torch, label, cap, need, plans, dev_plans, oracle):
+    """One backend through the sharded engine: the preload steps in exec
+    mode gpu, then the workload steps in modes gpu and torch, the torch
+    engine starting from a copy of the gpu state after the preload. Every
+    step dropped == 0; on the workload steps gpu == torch; every lane of
+    every step == the dict oracle (`oracle()`: (per step (ok, vals), the
+    sorted live keys), read once the steps are done); the final states
+    equal between the modes, the summed sizes the oracle's live count;
+    the kernels `need` launched; shards SHARD_RESIDENCY rebuilt from the
+    init snapshot over the whole journal (`resilience.rebuild_shard`)
+    equal the engine's. Returns (gpu engine, gpu final state, the gpu
+    state after the preload, launches, the gpu results (vals, ok) of the
+    workload steps)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.store import resilience as R
+    from repro_torch.store.resilience.journal import copy_to
+    t_be = time.perf_counter()
+    engines = {m: shard_engine(torch, label, m) for m in BOTH}
+    init = R.take_snapshot(engines["gpu"].init(cap), 0)
+    states = {"gpu": R.snapshot_state(init, DEV)}
+    journal = R.Journal(0)
+    secs = collections.defaultdict(list)
+    launches_step, syncs, host, wl_outs = [], [], [], []
+    after_preload = None
+
+    def launched():                     # per kernel, not again by layout
+        return sum(v for k, v in cuda.LAUNCHES.items() if "/" not in k)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for p, (tag, ops, keys, vals) in enumerate(dev_plans):
+        journal.append(p, *plans[p][1:])
+        if p == SHARD_PRELOAD_STEPS:
+            after_preload = copy_to(states["gpu"], DEV)
+            states["torch"] = copy_to(states["gpu"], DEV)
+        res = {}
+        for m in states:
+            sync_here = m == "gpu" and p == SHARD_PRELOAD_STEPS
+            before = launched()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with (counted_syncs(torch, syncs) if sync_here
+                  else contextlib.nullcontext()):
+                states[m], rv, rok, dr = engines[m].step(states[m], ops,
+                                                         keys, vals)
+            torch.cuda.synchronize()
+            if not sync_here:
+                secs[(m, tag == "preload")].append(time.perf_counter() - t0)
+            if m == "gpu":
+                launches_step.append(launched() - before)
+            check(int(dr) == 0, f"sharded {label} step {p}: {int(dr)} lanes "
+                  f"dropped")
+            res[m] = (rok, rv)
+        if "torch" in res:
+            check(torch.equal(res["gpu"][0], res["torch"][0])
+                  and torch.equal(res["gpu"][1], res["torch"][1]),
+                  f"sharded {label} step {p}: gpu != torch")
+            wl_outs.append((res["gpu"][1], res["gpu"][0]))
+        host.append((res["gpu"][0].cpu().numpy(),
+                     res["gpu"][1].cpu().numpy().view(np.uint64)))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    for name in need:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched in "
+              f"the sharded {label} cell")
+    shapes = harvest_shapes(cuda)
+    check(leaves_equal(torch, states["gpu"], states["torch"]),
+          f"sharded {label}: final state gpu != torch")
+    del states["torch"]
+    want, live = oracle()
+    for p, (ok, rv) in enumerate(host):
+        check(np.array_equal(ok, want[p][0]) and np.array_equal(rv, want[p][1]),
+              f"sharded {label} step {p}: results differ from the dict "
+              f"oracle")
+    del host
+    eng = engines["gpu"]
+    stats = eng.stats(states["gpu"])
+    check(int(stats["size"].sum()) == live.size, f"sharded {label}: summed "
+          f"size {int(stats['size'].sum())} != oracle {live.size}")
+    t0 = time.perf_counter()
+    pool = SHARD_LANES * SHARD_POOL_FACTOR
+    for shard in SHARD_RESIDENCY:
+        st, n = R.rebuild_shard(eng.backend, init, journal.entries, shard,
+                                eng.n_shards, pool, "gpu", device=DEV)
+        check(n > 0 and leaves_equal(torch, st, states["gpu"][shard]),
+              f"sharded {label}: shard {shard} rebuilt from the journal "
+              f"differs from the engine's")
+    rebuild_s = time.perf_counter() - t0
+    n_shards = eng.n_shards
+
+    def ms(mode, pre):
+        xs = secs[(mode, pre)]
+        return 1e3 * sum(xs) / len(xs) if xs else None
+    row = {"shards": n_shards, "capacity_per_shard": cap,
+           "lanes_per_step": n_shards * SHARD_LANES,
+           "spill_size": int(stats["spill_size"].sum()),
+           "evictions": int(stats["evictions"].sum()),
+           "ms_per_step": {m: {"preload": ms(m, True), "workload": ms(m, False)}
+                           for m in BOTH},
+           "launches_per_step": {"preload": launches_step[0],
+                                 "workload": launches_step[-1]},
+           "syncs_first_workload_step_gpu": syncs[0],
+           "launches": launches, "calls_by_shape": calls_by_shape(shapes),
+           "residency_rebuild_s": rebuild_s}
+    print(f"sharded {label}: " + json.dumps(row), flush=True)
+    print(f"sharded {label}: {time.perf_counter() - t_be:.3f} s", flush=True)
+    return eng, states["gpu"], after_preload, launches, wl_outs
+
+
+def shard_oracle(plans):
+    """The dict oracle of the sharded stream: (per step (ok, vals), the
+    sorted live keys). `sharded_phase` runs it in a worker process while
+    the card works."""
+    out, live = dict_oracle(plans)
+    return out, np.sort(np.fromiter(live.keys(), np.uint64, len(live)))
+
+
+def route_times(torch, dev_plans):
+    """Device ms of the route and of the route back of one workload step
+    on the production mesh, timed apart (CUDA events)."""
+    from repro_torch.core.routing import route_back, route_to_owners
+    S = int(np.prod(SHARD_SIZES))
+    _, ops, keys, vals = dev_plans[SHARD_PRELOAD_STEPS]
+    ops, keys, vals = (x.reshape(S, SHARD_LANES) for x in (ops, keys, vals))
+    pool = SHARD_LANES * SHARD_POOL_FACTOR
+
+    def route():
+        return route_to_owners(keys, vals, ops, ops >= 0, SHARD_AXES,
+                               SHARD_SIZES, pool)
+    rr = route()
+    live = rr.valid & (rr.aux >= 0)
+    found = live & (rr.aux == OP_FIND)
+    back = route_back(rr.vals, found, rr.origin, live, SHARD_AXES,
+                      SHARD_SIZES, SHARD_LANES)
+    check(torch.equal(back[0], torch.where(ops >= 0, vals, 0))
+          and torch.equal(back[1], ops == OP_FIND),
+          "sharded: the route back does not return each lane's own value")
+    return (median_ms(torch, route, 5),
+            median_ms(torch, lambda: route_back(
+                rr.vals, found, rr.origin, live, SHARD_AXES, SHARD_SIZES,
+                SHARD_LANES), 5))
+
+
+def range_check(torch, eng, state, keys, rng):
+    """The range step over det_skiplist: SHARD_RANGES valid lanes a shard,
+    each lane's count == `np.searchsorted` over the oracle's sorted live
+    `keys`; prints the step's ms (host clock, synchronized)."""
+    from repro_torch.core.bits import from_u64
+    n = eng.n_shards * SHARD_LANES
+    lo = rng.integers(0, 2**64 - 1, n, dtype=np.uint64)
+    hi = lo + rng.integers(1, 2**58, n, dtype=np.uint64)
+    hi = np.where(hi < lo, np.uint64(2**64 - 1), hi)
+    valid = np.zeros((eng.n_shards, SHARD_LANES), bool)
+    for s in range(eng.n_shards):
+        valid[s, rng.choice(SHARD_LANES, SHARD_RANGES, replace=False)] = True
+    valid = valid.reshape(-1)
+    want = np.where(valid, np.searchsorted(keys, hi)
+                    - np.searchsorted(keys, lo), 0)
+    rstep = eng.range_step(SHARD_RANGE_MAX_OUT)
+    args = (from_u64(lo, DEV), from_u64(hi, DEV),
+            torch.from_numpy(valid).to(DEV))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cnt = rstep(state, *args)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    check(np.array_equal(cnt.cpu().numpy(), want), "sharded: range counts "
+          "differ from np.searchsorted over the live keys")
+    print(f"sharded range step: {int(valid.sum())} valid ranges, counts "
+          f"{int(want[valid].min())}..{int(want[valid].max())} keys, "
+          f"{1e3 * t:.3f} ms", flush=True)
+
+
+def resilience_check(torch, eng0, base, final, wl_plans, ref, seed):
+    """`ResilientEngine` over obs:tiered3/lru (the default of the
+    reference's RECOVER check) on the workload steps from the
+    post-preload state `base`, snapshot every SHARD_SNAPSHOT_EVERY steps,
+    held to the fault-free run: the tier cell's own gpu run (`ref`, its
+    results a step; `final`, its end state through the engine `eng0`).
+    sync mode, with two shard drops, a poison and a stall: every step's
+    results, the final `state_digest` and the per-shard metrics == the
+    fault-free run's. degraded mode, one shard drop, one journal entry
+    replayed a step: the healthy lanes == the fault-free run's at every
+    step, and `completions` == the fault-free answers. Prints the
+    snapshot's ms and bytes and the recoveries' ms."""
+    from repro_torch.store import resilience as R
+    from repro_torch.store.resilience.journal import copy_to
+    backend = "obs:tiered3/lru"
+    S = int(np.prod(SHARD_SIZES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = R.take_snapshot(base, 0)
+    snap_s = time.perf_counter() - t0
+    snap_bytes = sum(a.nbytes for a in snap.leaves)
+    del snap
+    ref_digest, ref_metrics = R.state_digest(final), eng0.metrics(final)
+    rng = np.random.default_rng([seed, 13])
+    plan = R.FaultPlan(seed, [
+        R.Fault("poison", 1, lane=int(rng.integers(0, S * SHARD_LANES))),
+        R.Fault("stall", 1, ticks=3)] + [
+        R.Fault("shard_drop", st, shard=sh) for st, sh in SHARD_SYNC_DROPS])
+    step, dead = SHARD_DEGRADED_DROP
+    bits = S.bit_length() - 1
+    report = {}
+    for mode, fp in (("sync", plan), ("degraded", R.FaultPlan(
+            seed, [R.Fault("shard_drop", step, shard=dead)]))):
+        eng = shard_engine(torch, backend, "gpu")
+        reng = R.ResilientEngine(eng, snapshot_every=SHARD_SNAPSHOT_EVERY,
+                                 fault_plan=fp, mode=mode, replay_per_tick=1)
+        rec_s = []
+        recover = reng._recover_sync
+
+        def timed(st, shard, recover=recover, rec_s=rec_s):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = recover(st, shard)
+            torch.cuda.synchronize()
+            rec_s.append(time.perf_counter() - t1)
+            return out
+        reng._recover_sync = timed
+        state = copy_to(base, DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deferred = 0
+        for i, (_, ops, keys, vals) in enumerate(wl_plans):
+            state, rv, rok, _ = reng.step(state, ops, keys, vals)
+            if mode == "sync":
+                check(torch.equal(rv, ref[i][0]) and torch.equal(
+                    rok, ref[i][1]), f"resilient sync step {i}: results "
+                      f"differ from the fault-free run")
+                continue
+            held = (reng.quarantine is not None
+                    or any(s == i for s, _ in reng.completions))
+            mine = torch.zeros_like(rok)
+            if held:                        # the top log2(S) key bits
+                owner = (keys >> (64 - bits)) & (S - 1)
+                mine = (owner == dead) & (ops >= 0)
+            deferred += int(mine.sum())
+            check(torch.equal(rv[~mine], ref[i][0][~mine])
+                  and torch.equal(rok[~mine], ref[i][1][~mine])
+                  and not bool(rok[mine].any()), f"resilient degraded "
+                  f"step {i}: healthy lanes differ from the fault-free run")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if mode == "sync":
+            check(R.state_digest(state) == ref_digest, "resilient sync: the "
+                  "final state digest differs from the fault-free run's")
+            got = eng.metrics(state)
+            check(all(np.array_equal(got[k], ref_metrics[k])
+                      for k in ref_metrics), "resilient sync: per-shard "
+                  "metrics differ from the fault-free run's")
+        else:
+            check(reng.quarantine is None and len(reng.completions)
+                  == deferred > 0, "resilient degraded: deferred lanes not "
+                  "all completed")
+            for (seq, lane), (ok, val) in reng.completions.items():
+                check(ok == bool(ref[seq][1][lane])
+                      and val == int(ref[seq][0][lane]), f"resilient "
+                      f"degraded: completion ({seq}, {lane}) differs from "
+                      f"the fault-free answer")
+        check(reng.tally["recoveries"] == sum(
+            f.kind == "shard_drop" for f in fp.faults), f"resilient {mode}: "
+              f"recoveries {reng.tally['recoveries']}")
+        report[mode] = dict(tally=dict(reng.tally), steps_s=wall,
+                            recover_ms=[1e3 * x for x in rec_s],
+                            completions=len(reng.completions))
+        del state, reng
+    print(f"sharded resilience over {backend}: snapshot of {S} shards "
+          f"{1e3 * snap_s:.3f} ms, {snap_bytes} bytes; "
+          + json.dumps(report), flush=True)
+
+
+def sharded_phase(torch, seed: int):
+    """The sharded store (paper §VI) on the production mesh folded onto
+    the card: det_skiplist and obs:tiered3/lru through `shard_cell`, the
+    route and route-back times, the range step over det_skiplist, and the
+    resilience checks against the tier cell's workload steps. The dict
+    oracle runs in a spawned worker process, so a script that calls this
+    must guard its top level with `if __name__ == "__main__":`. Launch counts are set to 0 just before each cell and read just
+    after. Returns the launches summed over the cells."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    plans = make_shard_stream(seed)
+    t1 = time.perf_counter()
+    dev_plans = to_device(torch, plans)
+    print(f"sharded: mesh {dict(zip(SHARD_AXES, SHARD_SIZES))}, "
+          f"{len(plans)} steps of {plans[0][1].size} lanes; stream "
+          f"{t1 - t0:.3f} s, on the card {time.perf_counter() - t1:.3f} s",
+          flush=True)
+    route_ms, back_ms = route_times(torch, dev_plans)
+    print(f"sharded route: {route_ms:.6f} ms a step, route back "
+          f"{back_ms:.6f} ms a step", flush=True)
+    totals = collections.Counter()
+    tier = None
+    with multiprocessing.get_context("spawn").Pool(1) as workers:
+        job = workers.apply_async(shard_oracle, (plans,))
+        oracle = functools.lru_cache(maxsize=1)(job.get)
+        for label, cap, need in SHARD_CELLS:
+            eng, state, after_preload, launches, wl_outs = shard_cell(
+                torch, label, cap, need, plans, dev_plans, oracle)
+            totals.update(launches)
+            if label == "det_skiplist":
+                range_check(torch, eng, state, oracle()[1],
+                            np.random.default_rng([seed, 14]))
+            else:
+                tier = (eng, after_preload, state, wl_outs)
+            del eng, state, after_preload, wl_outs
+            torch.cuda.empty_cache()
+        print(f"sharded: {oracle()[1].size} live keys at the end (the dict "
+              f"oracle, in a worker process)", flush=True)
+        del oracle, job
+        workers.close()
+        workers.join()
+    from repro_torch.kernels import cuda
+    cuda.reset_launches()
+    eng, after_preload, state, wl_outs = tier
+    del tier
+    resilience_check(torch, eng, after_preload, state,
+                     dev_plans[SHARD_PRELOAD_STEPS:], wl_outs, seed)
+    more = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    for name in ("tier_find/level", "tier_apply/level"):
+        check(more.get(name, 0) > 0, f"kernel {name} never launched in the "
+              f"resilient runs")
+    harvest_shapes(cuda)
+    totals.update(more)
+    del eng, state, after_preload, wl_outs, dev_plans
+    torch.cuda.empty_cache()
+    print("sharded launches: " + json.dumps(dict(totals)), flush=True)
+    return dict(totals), None
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3972,7 +4534,9 @@ def main() -> int:
     done = phase("3 main path")
     plans = make_stream(args.seed)
     t0 = time.perf_counter()
-    oracle, n_live = dict_oracle(plans)
+    oracle, live = dict_oracle(plans)
+    n_live = len(live)
+    del live
     pq_plans, pq_expect, pq_final = make_pq_stream(args.seed)
     print(f"stream: {len(plans)} plans, "
           f"{sum(len(p[1]) for p in plans)} lanes; pq stream: "
@@ -3983,7 +4547,8 @@ def main() -> int:
                          pq_final)
     done()
 
-    for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase)):
+    for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase),
+                      ("6 sharded store", sharded_phase)):
         done = phase(name)
         more, _ = run(torch, args.seed)
         for k, v in more.items():
@@ -4004,7 +4569,8 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    print("calls by shape over the main path, serving and hymba: "
+    print("calls by shape over the main path, serving, hymba and the "
+          "sharded store: "
           + json.dumps(calls_by_shape(SHAPE_LAUNCHES)), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

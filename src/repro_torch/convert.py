@@ -10,7 +10,12 @@ by name; u64 leaves become int64 views of the same bits and uint32 leaves
 leaf; `max_load` is a static int and stays an int. `state_to_numpy` is
 the inverse: the same structure with numpy leaves, u64 and u32 fields
 restored to their unsigned types, so `tree_leaves` of both sides compare
-leaf for leaf.
+leaf for leaf. An `obs:` backend's `ObservedState` carries its metrics
+plane across as int64 leaves. `sharded_state_from_numpy` /
+`sharded_state_to_numpy` carry a sharded engine's state, a tuple of
+per-shard states, to and from the reference's layout, every leaf with a
+leading shard dim; `tree_map` maps a port state's tensors and static
+ints, keeping `LevelPlanes` views of one buffer.
 
 The serving slice adds `params_from_jax` (the reference's parameter
 pytree as numpy leaves, block leaves stacked `[n_groups, ...]`, into the
@@ -31,6 +36,7 @@ from repro_torch.core.hashtable import FixedHash, TwoLevelHash
 from repro_torch.core.layout import resolve_device
 from repro_torch.core.rand_skiplist import RandSkiplist
 from repro_torch.core.splitorder import SplitOrderHash, TwoLevelSplitOrder
+from repro_torch.store.obs import METRICS_SCHEMA, ObservedState
 from repro_torch.store.pq import PQState
 from repro_torch.store.tiers import SpillTier, TierState
 
@@ -122,13 +128,77 @@ def _unbuild(state):
 def state_from_numpy(backend_name: str, tree, device="cuda"):
     """Reference state (numpy leaves) -> the port's state on `device`
     (CUDA unless the caller passes device="cpu"; raises without a card)."""
-    return _build(_state_type(backend_name), tree, resolve_device(device))
+    dev = resolve_device(device)
+    if backend_name.startswith("obs:"):
+        return ObservedState(
+            inner=state_from_numpy(backend_name[len("obs:"):], tree.inner,
+                                   dev),
+            metrics={k: _leaf_in(tree.metrics[k], dev)
+                     for k in METRICS_SCHEMA})
+    return _build(_state_type(backend_name), tree, dev)
 
 
 def state_to_numpy(state):
     """The port's state -> the same structure with numpy leaves (u64
     fields as uint64)."""
+    if isinstance(state, ObservedState):
+        return ObservedState(inner=_unbuild(state.inner),
+                             metrics={k: _leaf_out(v)
+                                      for k, v in state.metrics.items()})
     return _unbuild(state)
+
+
+def _np_stack(trees):
+    """Stack the leaves of same-structure numpy trees on a new leading
+    dim; static ints become an int64 array, as the reference's
+    `sharded_init` promotes them."""
+    t = trees[0]
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _np_stack([x[k] for x in trees]) for k in t}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_np_stack(list(x)) for x in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_np_stack(list(x)) for x in zip(*trees))
+    return np.stack([np.asarray(x, np.int64 if isinstance(x, int) else None)
+                     for x in trees])
+
+
+def sharded_state_from_numpy(backend_name: str, tree, device="cuda") -> tuple:
+    """A reference sharded state (every leaf `[S, ...]`, numpy) -> the
+    port's tuple of S per-shard states on `device`."""
+    n = tree_leaves(tree)[0].shape[0]
+    return tuple(state_from_numpy(backend_name,
+                                  tree_map(lambda x: np.asarray(x)[s], tree),
+                                  device)
+                 for s in range(n))
+
+
+def sharded_state_to_numpy(state: tuple):
+    """The port's tuple of per-shard states -> the reference's sharded
+    layout: one tree, every leaf stacked on a leading shard dim."""
+    return _np_stack([state_to_numpy(st) for st in state])
+
+
+def tree_map(fn, tree):
+    """Map `fn` over the leaves of a state tree (NamedTuples, tuples,
+    dicts, None): a port state's tensors and static ints, or a reference
+    state's numpy leaves. `LevelPlanes` map their one flat buffer, so the
+    levels stay views of it."""
+    if tree is None:
+        return None
+    if isinstance(tree, LevelPlanes):
+        offs = tree.offsets
+        return LevelPlanes(fn(tree.flat),
+                           [b - a for a, b in zip(offs, offs[1:])])
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -220,11 +290,13 @@ def paged_kv_to_numpy(kv):
 
 
 def tree_leaves(tree) -> list:
-    """Leaves of a nested NamedTuple/tuple structure in field order, None
-    subtrees skipped (the order `jax.tree.leaves` gives the reference's
-    states)."""
+    """Leaves of a nested NamedTuple/tuple/dict structure in field order,
+    dicts by sorted key, None subtrees skipped (the order `jax.tree.leaves`
+    gives the reference's states)."""
     if tree is None:
         return []
+    if isinstance(tree, dict):
+        return tree_leaves([tree[k] for k in sorted(tree)])
     if isinstance(tree, (tuple, list)):
         out = []
         for x in tree:

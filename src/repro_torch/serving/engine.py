@@ -15,12 +15,15 @@ scheduler pops it (`deadline_expired`). With `shed_threshold` set, a
 pending backlog above it sheds the lowest priority band in one
 `scheduler.cancel_class` plan (`shed`).
 
+A `fault_plan` (`store.resilience.FaultPlan`) injects scheduler store
+drops at step boundaries; the journaled scheduler (`resilient=True`, on
+whenever a fault plan is given) detects each and rebuilds the store before
+its next plan, so the outputs equal the fault-free run's.
+
 The exec mode (`exec_mode`, None = the `store.exec` default "gpu") runs
 every step: in "gpu" the decode attention is the `paged_attention` CUDA
 kernel and the scheduler's and prefix cache's stores run their kernels;
-"torch" runs the plain versions (the reference's `use_kernel=False`). The
-reference's fault plan and journaled scheduler wait for the port of
-`store/resilience/` and raise `NotImplementedError`.
+"torch" runs the plain versions (the reference's `use_kernel=False`).
 
 Parameters come from `models.model.init_params` or
 `convert.params_from_jax`; the engine makes their compute-dtype copy once
@@ -71,10 +74,6 @@ class Engine:
                  exec_mode: str | None = None):
         if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
             raise NotImplementedError("the engine serves GQA transformers")
-        if fault_plan is not None or resilient:
-            raise NotImplementedError(
-                "fault plans and the resilient scheduler wait for the port "
-                "of store/resilience/ (ROADMAP.md §1)")
         self.cfg = cfg
         self.params = params
         params.load_compute_copy(cfg.compute_dtype)
@@ -85,14 +84,17 @@ class Engine:
                                    max_pages_per_req=max_pages_per_req,
                                    device=self.device)
         with exec_.exec_mode(exec_mode):
-            self.sched = SCH.scheduler_init(max_pending=1024,
-                                            device=self.device)
+            # a fault plan needs the journaled scheduler to recover from
+            self.sched = SCH.scheduler_init(
+                max_pending=1024, device=self.device,
+                resilient=resilient or fault_plan is not None)
             self.pc = (PC.prefix_cache_init(device=self.device)
                        if use_prefix_cache else None)
         self.shed_threshold = shed_threshold
         self.shed_band = shed_band
         self.backoff_base = backoff_base
         self.backoff_cap = backoff_cap
+        self.fault_plan = fault_plan
         self.res = obs.resilience_zero()   # engine-level host tally
         self._parked: list[tuple[int, int]] = []   # (retry_at_step, req_id)
         self.max_reqs = max_reqs
@@ -270,13 +272,18 @@ class Engine:
         return [i for i, r in enumerate(self.slot_to_req) if r >= 0]
 
     def step(self):
-        """One engine iteration: release parked retries, shed under
-        overload, admit, decode one token for every active request, retire
-        finished ones. Returns the decode batch size."""
+        """One engine iteration: inject any scheduled fault, release parked
+        retries, shed under overload, admit, decode one token for every
+        active request, retire finished ones. Returns the decode batch
+        size."""
         with exec_.exec_mode(self.exec_mode):
             return self._step()
 
     def _step(self):
+        if self.fault_plan is not None:
+            for f in self.fault_plan.at(self.steps):
+                if f.kind == "shard_drop":
+                    self.sched = SCH.inject_fault(self.sched)
         self._release_parked()
         self._shed_overload()
         with obs.span("admit"):
@@ -339,7 +346,12 @@ class Engine:
             decode_tokens=self.decode_tokens)
 
     def resilience_metrics(self) -> dict:
-        """The `obs.METRICS_SCHEMA` view of the scheduler store with the
-        engine's host tallies (deadline_expired / shed / retries) folded
-        in by `obs.merge_resilience`."""
-        return obs.merge_resilience(SCH.metrics(self.sched), dict(self.res))
+        """The `obs.METRICS_SCHEMA` view of the scheduler store with every
+        host tally folded in by `obs.merge_resilience`: the engine's own
+        (deadline_expired / shed / retries) plus the journaled
+        scheduler's (faults_injected / recoveries / replayed_ops)."""
+        tally = dict(self.res)
+        if self.sched.res is not None:
+            for k, v in self.sched.res.tally.items():
+                tally[k] += v
+        return obs.merge_resilience(SCH.metrics(self.sched), tally)

@@ -106,8 +106,8 @@ def insert(pc: PrefixCache, keys: torch.Tensor, handles: torch.Tensor,
 def metrics(pc: PrefixCache) -> dict:
     """The cache store's metrics plane (find_hits/find_misses, hot/warm/
     spill hits, evictions, ... over `obs.METRICS_SCHEMA`) as host ints."""
-    per = _engine(1, pc.hits.device).metrics(pc.store)
-    return {k: int(v) for k, v in per.items()}
+    per = engine_mod.sharded_metrics(BACKEND, pc.store)
+    return {k: int(v[0]) for k, v in per.items()}
 
 
 def keys_tensor(keys: list[int], device) -> torch.Tensor:

@@ -11,12 +11,16 @@ admission one plan of k OP_POPMIN lanes (a bulk pop of k), and
 over [priority << 32, (priority + 1) << 32). The arrival ring is not
 drained on cancellation (the store is the authoritative pending set).
 
-The journaled fault-tolerant mode (`resilient=True`, `health`,
-`recover`, `inject_fault`) waits for the port of `store/resilience/`
-(ROADMAP.md §1) and raises `NotImplementedError`.
+Fault tolerance: `scheduler_init(resilient=True)` attaches a
+`SchedResilience` record, a write-ahead `resilience.Journal` of every
+store plan plus a snapshot of the empty store, so a dropped store
+(`inject_fault`, the serving engine's fault plan; detected by the
+`state_alive` probe before the next plan touches it) is rebuilt to the
+exact pre-fault state by `recover()`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -27,6 +31,8 @@ from repro_torch.core.ringqueue import (RingQueue, pop_batch, push_batch,
                                         queue_init)
 from repro_torch.store import engine as engine_mod
 from repro_torch.store import exec as exec_
+from repro_torch.store import obs
+from repro_torch.store import resilience as res_mod
 from repro_torch.store.api import (OP_INSERT, OP_NONE, OP_POPMIN,
                                    OP_RANGE_DELETE)
 
@@ -37,17 +43,23 @@ BACKEND = "obs:pq"
 CANCEL_LANES = 4
 
 
+@dataclasses.dataclass
+class SchedResilience:
+    """Host-side mutable resilience record riding in the Scheduler: the
+    write-ahead journal of every store plan, the snapshot it replays
+    from, the resilience tally (`obs.RESILIENCE_SCHEMA`) and the plan seq
+    counter."""
+    journal: res_mod.Journal
+    snapshot: res_mod.Snapshot
+    tally: dict
+    seq: int = 0
+
+
 class Scheduler(NamedTuple):
     arrivals: RingQueue          # §III queue of packed (priority, ticket)
-    store: Any                   # `obs:pq` store state
+    store: Any                   # `obs:pq` store state (one shard)
     next_ticket: torch.Tensor    # () int64, monotone (the low 32 bits key)
-    res: Optional[Any] = None    # the journaled mode (not ported)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what}: the journaled scheduler waits for the port of "
-        f"store/resilience/ (ROADMAP.md §1)")
+    res: Optional[SchedResilience] = None   # journaled mode (host-side)
 
 
 def _engine(lanes: int, device) -> engine_mod.StoreEngine:
@@ -60,30 +72,67 @@ def _engine(lanes: int, device) -> engine_mod.StoreEngine:
 def scheduler_init(max_pending: int, queue_blocks: int = 16,
                    block_size: int = 64, resilient: bool = False,
                    device="cuda") -> Scheduler:
-    if resilient:
-        raise _not_ported("scheduler_init(resilient=True)")
     dev = resolve_device(device)
+    store = _engine(1, dev).init(max_pending)
+    res = None
+    if resilient:
+        res = SchedResilience(journal=res_mod.Journal(base_seq=0),
+                              snapshot=res_mod.take_snapshot(store, 0),
+                              tally=obs.resilience_zero())
     return Scheduler(
         arrivals=queue_init(queue_blocks, block_size, torch.int64,
                             device=dev),
-        store=_engine(1, dev).init(max_pending),
-        next_ticket=torch.tensor(0, dtype=torch.int64, device=dev))
+        store=store,
+        next_ticket=torch.tensor(0, dtype=torch.int64, device=dev),
+        res=res)
 
 
 def health(s: Scheduler) -> bool:
-    raise _not_ported("health")
+    """Liveness probe of the (one-shard) scheduler store."""
+    return bool(res_mod.state_alive(s.store, 1)[0])
 
 
 def recover(s: Scheduler):
-    raise _not_ported("recover")
+    """Rebuild the scheduler store from snapshot + journal: every
+    journaled plan replayed through the same cached engine steps the live
+    calls used (an entry's lane width selects the engine). Returns the
+    rebuilt store; the ring and the ticket counter are untouched (the
+    fault model targets the store)."""
+    r = s.res
+    if r is None:
+        raise ValueError("scheduler_init(resilient=True) required to recover")
+    dev = s.next_ticket.device
+    state = res_mod.snapshot_state(r.snapshot, dev)
+    replayed = 0
+    with obs.span("recover", mode="scheduler", replay=len(r.journal)):
+        for e in r.journal.entries:
+            plan = res_mod.journal.device_plan(e.ops, e.keys, e.vals, dev)
+            state, _, _, _ = _engine(e.ops.shape[0], dev).step(state, *plan)
+            replayed += e.n_ops
+    r.tally["recoveries"] += 1
+    r.tally["replayed_ops"] += replayed
+    return state
 
 
 def inject_fault(s: Scheduler) -> Scheduler:
-    raise _not_ported("inject_fault")
+    """Drop the scheduler store (zero its one shard): the serving engine's
+    chaos hook, counted in `faults_injected`."""
+    if s.res is not None:
+        s.res.tally["faults_injected"] += 1
+    return s._replace(store=res_mod.inject_shard_drop(s.store, 0))
 
 
 def _store_step(s: Scheduler, ops, keys, vals):
-    return _engine(ops.shape[0], ops.device).step(s.store, ops, keys, vals)
+    """Every scheduler plan funnels through here: in journaled mode, check
+    health (recovering a dropped store before the plan touches it), then
+    journal the plan, then step the cached engine."""
+    store = s.store
+    if s.res is not None:
+        if not health(s):
+            store = recover(s)
+        s.res.journal.append(s.res.seq, ops, keys, vals)
+        s.res.seq += 1
+    return _engine(ops.shape[0], ops.device).step(store, ops, keys, vals)
 
 
 def submit(s: Scheduler, priorities: torch.Tensor, req_ids: torch.Tensor,
@@ -130,12 +179,14 @@ def cancel_class(s: Scheduler, priority: int):
                      next_ticket=s.next_ticket, res=s.res), cancelled
 
 
-def pending(s: Scheduler) -> torch.Tensor:
-    return _engine(1, s.next_ticket.device).stats(s.store)["size"]
+def pending(s: Scheduler) -> int:
+    return int(engine_mod.sharded_stats(BACKEND, s.store)["size"][0])
 
 
 def metrics(s: Scheduler) -> dict:
     """The scheduler store's metrics plane (pops, pop_empty, inserts_new,
-    ... over `obs.METRICS_SCHEMA`) as host ints."""
-    per = _engine(1, s.next_ticket.device).metrics(s.store)
-    return {k: int(v) for k, v in per.items()}
+    ... over `obs.METRICS_SCHEMA`) as host ints. The resilience counters
+    are zeros here; `serving.engine.Engine.resilience_metrics` merges the
+    host tallies in."""
+    per = engine_mod.sharded_metrics(BACKEND, s.store)
+    return {k: int(v[0]) for k, v in per.items()}

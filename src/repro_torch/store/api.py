@@ -23,6 +23,11 @@ from repro_torch.core.bits import from_u64
 OP_NONE, OP_FIND, OP_INSERT, OP_DELETE, OP_RANGE = -1, 0, 1, 2, 3
 OP_POPMIN, OP_POPK, OP_RANGE_DELETE = 4, 5, 6
 
+# The closed set of executable lane op codes (OP_NONE is the idle lane, not
+# an op); the resilience layer treats any other value as a poisoned lane.
+VALID_OPS = frozenset((OP_FIND, OP_INSERT, OP_DELETE, OP_RANGE,
+                       OP_POPMIN, OP_POPK, OP_RANGE_DELETE))
+
 
 class OpPlan(NamedTuple):
     """A batch of K ops as parallel tensors — the unit of linearization."""

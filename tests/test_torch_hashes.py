@@ -42,7 +42,7 @@ from repro_torch.store import available_backends
 from repro_torch.store import exec as t_exec
 from repro_torch.store import get_backend as t_backend
 from repro_torch.store import make_plan as t_plan
-from repro_torch.store.engine import StoreEngine
+from repro_torch.store.engine import LOCAL_MESH, StoreEngine
 
 DEV = "cpu"
 K = 64
@@ -490,7 +490,8 @@ def _leaves_equal(a, b):
 
 @pytest.mark.parametrize("name", BACKENDS)
 def test_engine_matches_direct_apply(name):
-    eng = StoreEngine(K, name, device=DEV, exec_mode="torch")
+    eng = StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, K, name,
+                      pool_factor=1, device=DEV, exec_mode="torch")
     be = t_backend(name)
     se, sd = eng.init(256), be.init(256, device=DEV)
     for i, (ops, keys, vals, mask) in enumerate(_stream(9)):

@@ -28,7 +28,7 @@ from repro_torch.core.bits import from_u64
 from repro_torch.store import exec as t_exec
 from repro_torch.store import get_backend as t_backend
 from repro_torch.store import make_plan as t_plan
-from repro_torch.store.engine import StoreEngine
+from repro_torch.store.engine import LOCAL_MESH, StoreEngine
 
 DEV = "cpu"
 K = 64
@@ -197,7 +197,8 @@ def test_dispatches_per_apply_match_reference():
 
 
 def test_engine_matches_direct_apply():
-    eng = StoreEngine(K, NAME, device=DEV, exec_mode="gpu")
+    eng = StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, K, NAME,
+                      pool_factor=1, device=DEV, exec_mode="gpu")
     be = t_backend(NAME)
     se, sd = eng.init(256), be.init(256, device=DEV)
     for i, (ops, keys, vals, mask) in enumerate(_stream(9)):

@@ -36,6 +36,7 @@ from repro_torch.serving.engine import Engine, Request
 from repro_torch.serving.paged_decode import paged_decode_step
 from repro_torch.store import exec as t_exec
 from repro_torch.store import obs
+from repro_torch.store.resilience import FaultPlan
 
 ARCH = "qwen3-1.7b"
 DEV = "cpu"
@@ -246,10 +247,14 @@ def test_engine_recycled_pages_miss(cfgs, params, jref):
 
 
 def test_engine_fault_paths_not_ported(cfgs, params):
+    """Kept under its old name: the fault paths are ported, and both
+    `resilient=True` and a fault plan give the journaled scheduler
+    (`tests/test_torch_resilience.py` drives a faulted trace)."""
     (_, tcfg), (_, tp) = cfgs, params
-    for kw in (dict(resilient=True), dict(fault_plan=object())):
-        with pytest.raises(NotImplementedError, match="resilience"):
-            Engine(tcfg, tp, device=DEV, **kw)
+    for kw in (dict(resilient=True), dict(fault_plan=FaultPlan(0, []))):
+        eng = Engine(tcfg, tp, device=DEV, **kw)
+        assert eng.sched.res is not None and len(eng.sched.res.journal) == 0
+    assert Engine(tcfg, tp, device=DEV).sched.res is None
 
 
 # ---------------------------------------------------------------------------

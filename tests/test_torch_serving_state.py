@@ -42,6 +42,7 @@ from repro_torch.serving import prefix_cache as TPC
 from repro_torch.serving import scheduler as SCH
 from repro_torch.store import exec as t_exec
 from repro_torch.store import obs
+from repro_torch.store.resilience import state_digest
 
 ARCH = "qwen3-1.7b"
 DEV = "cpu"
@@ -329,12 +330,22 @@ def test_scheduler_cancel_class_drops_one_band():
 
 
 def test_scheduler_resilience_not_ported():
-    with pytest.raises(NotImplementedError, match="resilience"):
-        SCH.scheduler_init(8, resilient=True, device=DEV)
-    s = SCH.scheduler_init(8, device=DEV)
-    for fn in (SCH.health, SCH.recover, SCH.inject_fault):
-        with pytest.raises(NotImplementedError):
-            fn(s)
+    """Kept under its old name: the journaled scheduler is ported. A
+    dropped store is dead by `health` and `recover` rebuilds it bit for
+    bit; a scheduler without the journal refuses to recover."""
+    s = SCH.scheduler_init(8, resilient=True, device=DEV)
+    s, ok = SCH.submit(s, torch.tensor([1, 0]), torch.tensor([5, 6]),
+                       _bools([True, True]))
+    assert ok.all() and SCH.health(s)
+    dead = SCH.inject_fault(s)
+    assert not SCH.health(dead) and s.res.tally["faults_injected"] == 1
+    assert state_digest(SCH.recover(dead)) == state_digest(s.store)
+    assert s.res.tally["recoveries"] == 1
+    assert s.res.tally["replayed_ops"] == 2
+    dead, got, valid = SCH.pop_min(dead, 2)            # recovers first
+    assert [int(g) for g in got] == [6, 5] and valid.all()
+    with pytest.raises(ValueError, match="resilient"):
+        SCH.recover(SCH.scheduler_init(8, device=DEV))
 
 
 # ---------------------------------------------------------------------------

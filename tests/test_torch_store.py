@@ -44,7 +44,8 @@ from repro_torch.store import exec as t_exec
 from repro_torch.store import get_backend as t_backend
 from repro_torch.store import make_plan as t_plan
 from repro_torch.store import obs as t_obs
-from repro_torch.store.engine import StoreEngine, local_store_engine
+from repro_torch.store.engine import (LOCAL_MESH, StoreEngine,
+                                      local_store_engine)
 from repro_torch.store.tiers import unfused_twin as t_unfused
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -174,7 +175,8 @@ def test_dispatches_per_apply_match_reference(name):
 
 @pytest.mark.parametrize("name", ["det_skiplist", "tiered3/lru"])
 def test_engine_matches_direct_apply(name):
-    eng = StoreEngine(WIDTH, name, device=DEV, exec_mode="torch")
+    eng = StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, WIDTH, name,
+                      pool_factor=1, device=DEV, exec_mode="torch")
     be = t_backend(name)
     se = eng.init(CAP, **_init_kw(name))
     sd = be.init(CAP, device=DEV, **_init_kw(name))
@@ -191,7 +193,7 @@ def test_engine_matches_direct_apply(name):
         for a, b in zip(tree_leaves(se), tree_leaves(sd)):
             assert torch.equal(a, b), (name, i)
     st = eng.stats(se)
-    assert st["seq"] == 6 and int(st["size"]) == int(be.stats(sd)["size"])
+    assert st["seq"] == 6 and int(st["size"][0]) == int(be.stats(sd)["size"])
 
 
 @pytest.mark.parametrize("name", ["fixed_hash", "tiered3", "tiered3/lru"])
@@ -316,10 +318,11 @@ def test_port_sources_never_import_the_reference():
 
 def test_cuda_entry_points_refuse_cpu_only_machine():
     if torch.cuda.is_available():
-        assert StoreEngine(8, "det_skiplist").device.type == "cuda"
+        assert StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, 8,
+                           "det_skiplist").device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="cuda"):
-            StoreEngine(8, "det_skiplist")
+            StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, 8, "det_skiplist")
         with pytest.raises(RuntimeError, match="cuda"):
             t_backend("tiered3").init(64)
     be = t_backend("det_skiplist")

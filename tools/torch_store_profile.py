@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where a plan's time goes in the PyTorch/CUDA port, per backend, on the
 main path's own stream; with --serve, where the serving engine's time
-goes; with --hymba, where hymba-1.5b's prefill and decode time goes.
+goes; with --hymba, where hymba-1.5b's prefill and decode time goes;
+with --sharded, where the sharded store engine's time goes.
 
-    python3 tools/torch_store_profile.py [--serve | --hymba]
+    python3 tools/torch_store_profile.py [--serve | --hymba | --sharded]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -37,6 +38,13 @@ depth (bf16 compute, attn_impl "xla_flash", exec mode gpu), one prefill of
 8 prompts x 4,096 tokens and then 8 decode steps, each after an
 unprofiled warm-up, with the same columns per prefill and per decode step
 (the flash_attention and selective_scan kernels among the port's).
+
+--sharded profiles chip_smoke.py's phase 6 cells: det_skiplist and
+tiered3/lru behind the sharded `StoreEngine` on the production mesh
+(16 x 16 shards of 4,096 lanes, pool factor 2, exec mode gpu) on
+`make_shard_stream`: every preload step but the last runs unprofiled,
+then three windows, the last preload step and each workload's steps,
+with the same columns per step (2^20 lanes).
 """
 from __future__ import annotations
 
@@ -127,6 +135,26 @@ def report(torch, exec_, run, n: int, what: str, unit: str, label: str):
         for e in sorted(avg, key=self_device_us, reverse=True)))
 
 
+def sharded_profile(torch, cs, exec_) -> None:
+    """The sharded store's cells (see the module docstring)."""
+    plans = cs.to_device(torch, cs.make_shard_stream(0))
+    n_pre = cs.SHARD_PRELOAD_STEPS
+    for name, cap, _ in cs.SHARD_CELLS:
+        eng = cs.shard_engine(torch, name, "gpu")
+        st = eng.init(cap)
+        for _, ops, keys, vals in plans[:n_pre - 1]:
+            st, _, _, _ = eng.step(st, ops, keys, vals)
+        engines = {plans[0][1].shape[0]: eng}
+        for label, window in (
+                ("preload", plans[n_pre - 1:n_pre]),
+                ("wl1", [p for p in plans if p[0] == "wl1"]),
+                ("wl2", [p for p in plans if p[0] == "wl2"])):
+            st = profile_window(torch, exec_, engines, st, window,
+                                f"sharded {name} {label}")
+        del st, eng, engines
+        torch.cuda.empty_cache()
+
+
 def serve_profile(torch, cs, exec_) -> None:
     """chip_smoke's serving cell, driven through `traffic.ticks` (replay's
     tick loop) with two profiled windows of engine steps (SERVE_WINDOWS:
@@ -205,7 +233,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import chip_smoke as cs
     from repro_torch.store import exec as exec_
-    from repro_torch.store.engine import StoreEngine
+    from repro_torch.store.engine import LOCAL_MESH, StoreEngine
 
     OUT.mkdir(parents=True, exist_ok=True)
     print(f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -214,6 +242,9 @@ def main() -> int:
         return 0
     if "--hymba" in sys.argv[1:]:
         hymba_profile(torch, cs, exec_)
+        return 0
+    if "--sharded" in sys.argv[1:]:
+        sharded_profile(torch, cs, exec_)
         return 0
     C = 1 << cs.LOG2_CAPACITY
     kv = cs.to_device(torch, cs.make_stream(0))
@@ -230,7 +261,8 @@ def main() -> int:
         tags = sorted({tag for tag, *_ in plans} - {"preload"})
         windows = [("preload", plans[n_pre - PROFILED_PRELOAD:n_pre])] + [
             (t, [p for p in plans if p[0] == t]) for t in tags]
-        engines = {w: StoreEngine(w, name, exec_mode="gpu")
+        engines = {w: StoreEngine(LOCAL_MESH, LOCAL_MESH.axis_names, w, name,
+                                  pool_factor=1, exec_mode="gpu")
                    for w in {p[1].shape[0] for p in plans}}
         st = engines[plans[0][1].shape[0]].init(cap)
         for _, ops, keys, vals in plans[:n_pre - PROFILED_PRELOAD]:
