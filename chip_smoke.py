@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
-hymba-1.5b's prefill and decode, and the sharded store) on one GPU and
-check it.
+hymba-1.5b's prefill and decode, the sharded store, and training) on one
+GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -189,7 +189,29 @@ is non-zero and no result line is printed):
    lanes and the deferred lanes' completions equal it. Prints ms a step by backend and mode,
    launches a step, the syncs of a workload step (torch's sync debug
    mode), the snapshot's ms and bytes and the recoveries' ms.
-7. The calls by shape of the store kernels over phases 3-6, a `kernels`
+7. Training: qwen3-1.7b at full width and depth (28 layers, seeded f32
+   parameters and AdamW moments, bf16 compute, remat, attn_impl "xla":
+   the reference's train configuration) through `train.loop.train` with
+   its `PrefetchPipeline` on the card: `SHAPES["train_4k"]` with the
+   global batch cut from 256 to 8 (8 x 4,096 tokens a step, 4
+   microbatches of two sequences), 4 steps. Launch counts are set to 0
+   just before and must stay 0 (the reference trains through its plain
+   attention, so the path reaches no kernel). Checks: finite losses and
+   grad norms, step 0's loss within 0.5 of ln(vocab), the parameters
+   moved, AdamW's step is 4, the pipeline delivered steps 0-3 from its
+   prefetch (no straggler skip), the ring queue's pushed == popped and
+   every block-pool block free. Then the restart check at full width and
+   2 layers: 4 uninterrupted steps against 2 steps with a synchronous
+   checkpoint and a resumed run to step 4, the resumed losses bit-equal
+   under deterministic algorithms (set inside the check only; an op with
+   no deterministic form is recorded and the losses held within
+   TRAIN_NONDET_RTOL), in a temporary directory it removes; then one
+   f32 train step at 2 layers on a 512-token sequence on the card and on
+   the CPU: loss within 1e-5 and grad norm within 1e-4 relative. Prints
+   ms a step (steps 1 on), tokens/s, peak GiB beside the memory
+   reckoning, `pipe.get` ms a step, checkpoint save and restore s and
+   MB/s.
+8. The calls by shape of the store kernels over phases 3-6, a `kernels`
    JSON line, then the last line
    `{"ok": true, "device": {...}}`.
 """
@@ -198,6 +220,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import functools
 import gc
 import json
@@ -796,6 +819,8 @@ def print_shape(name, shape, r):
           f"{', '.join(f'{x:.6f}' for x in r['launch_ms'])} ms), bound "
           f"{r['bound_ms']:.7f} ms by {r['bound_by']}, "
           f"{r['ms'] / r['bound_ms']:.1f}x the bound"
+          + (f", plain {r['plain_ms']:.6f} ms"
+             if r.get("plain_ms") is not None else "")
           + (f", library {r['library_ms']:.6f} ms"
              if r.get("library_ms") is not None else ""), flush=True)
 
@@ -891,10 +916,12 @@ def tier_apply_bound(torch, sk, ss, sm, hot_keys, meta, wl, sp, layout):
                  + 4 + tables), in_warm
 
 
-def shape_row(torch, fn, bnd):
-    """Time `fn` as one call and launch by launch, beside its bound."""
+def shape_row(torch, fn, bnd, plain=None):
+    """Time `fn` as one call and launch by launch, beside its bound and,
+    where `plain` is given, its plain version's time."""
     return dict(ms=median_ms(torch, fn), launch_ms=split_ms(torch, fn),
-                bound_ms=bnd[0], bound_by=bnd[1])
+                bound_ms=bnd[0], bound_by=bnd[1],
+                plain_ms=None if plain is None else median_ms(torch, plain))
 
 
 def print_shapes(tier_rows, pq_rows, probe_rows):
@@ -962,10 +989,13 @@ def tier_rows(torch, rows, st, label, q, vals, mask, layouts):
             bnd = bounds[(kern, layout)]
             if layout == "block":
                 bnd = min(bnd, bounds[(kern, "level")])
-            fn = ((lambda a=args: tier_apply_tiles(*a))
-                  if kern == "tier_apply"
-                  else (lambda a=fargs: tier_find_tiles(*a)))
-            rows[(kern, layout, label, lanes)] = shape_row(torch, fn, bnd)
+            fn, plain = (((lambda a=args: tier_apply_tiles(*a)),
+                          (lambda a=args: tier_apply_planes_ref(*a)))
+                         if kern == "tier_apply" else
+                         ((lambda a=fargs: tier_find_tiles(*a)),
+                          (lambda a=fargs: tier_find_planes_ref(*a))))
+            rows[(kern, layout, label, lanes)] = shape_row(torch, fn, bnd,
+                                                           plain)
 
 
 # the serving engine's prefix cache: an `obs:tiered3/lru` store of 1,024
@@ -1057,7 +1087,7 @@ def probe_rows(torch, rng, keys, flat, table, forced: bool = False):
         bnd = bound(torch, reads, stream)
         if cap is not None:
             bnd = min(bnd, cap)
-        r = shape_row(torch, fn, bnd)
+        r = shape_row(torch, fn, bnd, ref)
         r["library_ms"] = None if library is None else median_ms(torch,
                                                                  library)
         rows[(name, shape)] = r
@@ -1178,7 +1208,8 @@ def pq_shapes(torch, rng, heap, ranks, m8):
                     + 4 * len(lay.offsets))
         rows[("pq_pop", f"{label}, {r.numel()} lanes, "
                f"{st.term_keys.numel()} cells")] = \
-            shape_row(torch, lambda a=(r, m, lay): pq_pop_tiles(*a), bnd)
+            shape_row(torch, lambda a=(r, m, lay): pq_pop_tiles(*a), bnd,
+                      lambda a=(r, m, lay): pq_pop_ref(*a))
     rows.update(serve_search_rows(torch, rng, small))
     return rows
 
@@ -1210,7 +1241,8 @@ def serve_search_rows(torch, rng, small):
               "skiplist_search (serving): the bound's replay differs")
         r = shape_row(torch, lambda a=(q, lay): skiplist_search_tiles(*a),
                       bound(torch, reads, lanes * (8 + 1 + 4)
-                            + 4 * len(lay.offsets)))
+                            + 4 * len(lay.offsets)),
+                      lambda a=(q, lay): skiplist_search_ref(*a))
         r["library_ms"] = median_ms(torch, lambda a=(oterm, ordered(q)):
                                     torch.searchsorted(*a))
         rows[("skiplist_search", f"serving, {lanes} lanes, "
@@ -1250,7 +1282,8 @@ def shard_shapes(torch, rng):
           "skiplist_search (sharded pool): the bound's replay differs")
     r = shape_row(torch, lambda: skiplist_search_tiles(q, lay),
                   bound(torch, reads, pool * (8 + 1 + 4)
-                        + 4 * len(lay.offsets)))
+                        + 4 * len(lay.offsets)),
+                  lambda: skiplist_search_ref(q, lay))
     oq, oterm = ordered(q), ordered(shard.term_keys)
     r["library_ms"] = median_ms(torch, lambda: torch.searchsorted(oterm, oq))
     probes = {("skiplist_search", f"sharded pool, {pool} lanes, "
@@ -4495,6 +4528,242 @@ def sharded_phase(torch, seed: int):
     return dict(totals), None
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH = 8             # SHAPES["train_4k"]'s global batch of 256, cut
+TRAIN_MICRO = 4             # two 4,096-token sequences a microbatch
+TRAIN_STEPS = 4
+TRAIN_LOSS0_MARGIN = 0.5    # step 0's loss within this of ln(vocab)
+TRAIN_RESTART_LAYERS = 2
+TRAIN_RESTART_AT = 2        # the synchronous checkpoint's step
+TRAIN_PARITY_SEQ = 512      # the card-vs-CPU step: one sequence
+TRAIN_PARITY_LOSS_RTOL = 1e-5
+TRAIN_PARITY_GNORM_RTOL = 1e-4
+TRAIN_NONDET_RTOL = 1e-6    # resumed losses, if an op had no deterministic form
+
+
+def timed_calls(module, name: str, sink: list):
+    """Wrap `module.name` so each call appends its seconds to `sink`;
+    returns the undo."""
+    orig = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            sink.append(time.perf_counter() - t0)
+    setattr(module, name, wrapped)
+    return lambda: setattr(module, name, orig)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def train_main_run(torch, cfg, shape, seed: int):
+    """qwen3-1.7b at full width and depth through `train()` on the card:
+    the checks of the main run, and its readings."""
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import train
+    params = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    watch = {n: p.detach()[:4].clone() for n, p in params.named_parameters()
+             if n in ("embed", "final_norm", "blocks.0.attn.wq",
+                      f"blocks.{cfg.n_layers - 1}.ffn.wd")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, out = train(cfg, shape, steps=TRAIN_STEPS, seed=seed,
+                             microbatches=TRAIN_MICRO, log_every=1,
+                             device=DEV, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = out["history"]
+    pipe = out["pipeline"]
+    check(not launches, f"the train path launched kernels: {launches}")
+    check([h["step"] for h in hist] == list(range(TRAIN_STEPS)),
+          f"steps delivered {[h['step'] for h in hist]}")
+    check(out["straggler_skips"] == 0,
+          f"straggler skips {out['straggler_skips']}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"non-finite loss or grad norm: {hist}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(hist[0]["loss"] - ln_v) <= TRAIN_LOSS0_MARGIN,
+          f"step 0 loss {hist[0]['loss']} vs ln(vocab) {ln_v}")
+    moved = {n: bool((p.detach()[:4] != watch[n]).any())
+             for n, p in params.named_parameters() if n in watch}
+    check(all(moved.values()), f"parameters did not move: {moved}")
+    check(int(opt["adam"]["step"]) == TRAIN_STEPS,
+          f"adam step {int(opt['adam']['step'])}")
+    check(int(pipe.queue.pushed) == int(pipe.queue.popped),
+          f"ring queue pushed {int(pipe.queue.pushed)} popped "
+          f"{int(pipe.queue.popped)}")
+    check(int(pipe.pool.num_free()) == pipe.depth,
+          f"block pool: {int(pipe.pool.num_free())} of {pipe.depth} free")
+    tokens = shape.global_batch * shape.seq_len
+    step_s = statistics.fmean(h["time"] for h in hist[1:])
+    get_ms = statistics.fmean(h["get_time"] for h in hist[1:]) * 1e3
+    state_gb = n_params * 16 / 1e9
+    logits_gb = (tokens // TRAIN_MICRO) * cfg.padded_vocab * 4 / 1e9
+    print(f"train: {cfg.name} {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({cfg.param_dtype}, {cfg.compute_dtype} "
+          f"compute, remat {cfg.remat}, attn_impl {cfg.attn_impl}); "
+          f"{shape.name} cut to global batch {shape.global_batch} x "
+          f"{shape.seq_len} tokens, {TRAIN_MICRO} microbatches; "
+          f"{TRAIN_STEPS} steps in {wall:.3f} s", flush=True)
+    print(f"train: losses {[h['loss'] for h in hist]}, grad norms "
+          f"{[h['grad_norm'] for h in hist]}; ln(vocab) {ln_v:.6f}",
+          flush=True)
+    print(f"train: {step_s * 1e3:.3f} ms a step (steps 1-{TRAIN_STEPS - 1}), "
+          f"{tokens / step_s:.1f} tokens/s, step 0 {hist[0]['time']:.3f} s; "
+          f"pipe.get {get_ms:.3f} ms a step (steps 1 on; "
+          f"{[round(h['get_time'] * 1e3, 3) for h in hist]} ms by step); "
+          f"peak {peak:.3f} GiB "
+          f"(reckoning: params + grads + m + v {state_gb:.1f} GB, one "
+          f"microbatch's f32 logits {logits_gb:.2f} GB); ring queue "
+          f"pushed {int(pipe.queue.pushed)} == popped, "
+          f"{int(pipe.pool.num_free())}/{pipe.depth} blocks free",
+          flush=True)
+    return {"ms_per_step": step_s * 1e3, "tokens_per_s": tokens / step_s,
+            "peak_gib": peak, "get_ms": get_ms}
+
+
+def train_restart_check(torch, cfg, shape, seed: int):
+    """Full width, depth cut: an uninterrupted run of TRAIN_STEPS against
+    TRAIN_RESTART_AT steps with a synchronous checkpoint, then a resumed
+    run to TRAIN_STEPS. Deterministic algorithms inside this check only;
+    an op without a deterministic form is recorded, and the losses are
+    then held within TRAIN_NONDET_RTOL."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+    from repro_torch.train import loop
+    cfg = cfg.replace(n_layers=TRAIN_RESTART_LAYERS)
+    kw = dict(seed=seed, microbatches=TRAIN_MICRO, log_every=0, device=DEV)
+    saves, restores = [], []
+    undo = [timed_calls(loop, "save", saves),
+            timed_calls(loop, "restore", restores)]
+    was_det = torch.are_deterministic_algorithms_enabled()
+    was_cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, _, ref = loop.train(cfg, shape, steps=TRAIN_STEPS, **kw)
+            loop.train(cfg, shape, steps=TRAIN_RESTART_AT, ckpt_dir=tmp,
+                       ckpt_every=TRAIN_RESTART_AT, async_save=False, **kw)
+            ckpt_bytes = dir_bytes(tmp)
+            _, _, cont = loop.train(cfg, shape, steps=TRAIN_STEPS,
+                                    ckpt_dir=tmp, ckpt_every=100, **kw)
+            torch.cuda.synchronize()
+        nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                         if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(was_det)
+        if was_cfg is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = was_cfg
+        for u in undo:
+            u()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(saves) == 1 and len(restores) == 1,
+          f"{len(saves)} saves, {len(restores)} restores")
+    check([h["step"] for h in cont["history"]]
+          == list(range(TRAIN_RESTART_AT, TRAIN_STEPS)),
+          f"resumed steps {[h['step'] for h in cont['history']]}")
+    want = [h["loss"] for h in ref["history"][TRAIN_RESTART_AT:]]
+    got = [h["loss"] for h in cont["history"]]
+    if nondet:
+        check(all(abs(g - w) <= TRAIN_NONDET_RTOL * abs(w)
+                  for g, w in zip(got, want)),
+              f"resumed losses {got} vs {want} (rtol {TRAIN_NONDET_RTOL}; "
+              f"ops without a deterministic form: {nondet})")
+    else:
+        check(got == want, f"resumed losses {got} != uninterrupted {want}")
+    mb = ckpt_bytes / 1e6
+    print(f"train restart: {cfg.n_layers} layers, uninterrupted losses "
+          f"{[h['loss'] for h in ref['history']]}, resumed at step "
+          f"{TRAIN_RESTART_AT}: {got} "
+          f"({'bit-equal' if got == want else 'within the tolerance'}); "
+          f"ops without a deterministic form: {nondet or 'none'}",
+          flush=True)
+    print(f"train checkpoint: {mb:.1f} MB (params + m + v + step); save "
+          f"{saves[0]:.3f} s ({mb / saves[0]:.1f} MB/s), restore "
+          f"{restores[0]:.3f} s ({mb / restores[0]:.1f} MB/s); disk writes "
+          f"and reads through the page cache (warm)", flush=True)
+    return {"save_s": saves[0], "restore_s": restores[0], "ckpt_mb": mb}
+
+
+def train_parity_check(torch, cfg, seed: int):
+    """One train step at full width, TRAIN_RESTART_LAYERS layers, one
+    TRAIN_PARITY_SEQ-token sequence, f32 compute, on the card and on the
+    CPU from the same parameters: loss and grad norm."""
+    import copy
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = cfg.replace(n_layers=TRAIN_RESTART_LAYERS, compute_dtype="float32")
+    shape = ShapeConfig("parity", TRAIN_PARITY_SEQ, 1, "train")
+    cpu_p = M.init_params(cfg, torch.Generator("cpu").manual_seed(seed))
+    out = {}
+    for dev, p in ((DEV, copy.deepcopy(cpu_p).to(DEV)), ("cpu", cpu_p)):
+        p.make_trainable()
+        t0 = time.perf_counter()
+        step = make_train_step(cfg)
+        _, _, m = step(p, {"adam": adamw_init(p)},
+                       synth_batch(cfg, shape, seed, 0, device=dev))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    time.perf_counter() - t0)
+        del p
+    (gl, gg, gt), (cl, cg, ct) = out[DEV], out["cpu"]
+    lerr, gerr = abs(gl - cl) / abs(cl), abs(gg - cg) / abs(cg)
+    print(f"train card vs cpu: {cfg.n_layers} layers, 1 x "
+          f"{TRAIN_PARITY_SEQ} tokens, f32 compute, TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}: loss {gl} vs {cl} "
+          f"(rel {lerr:.3e}), grad norm {gg} vs {cg} (rel {gerr:.3e}); "
+          f"step {gt:.3f} s on the card, {ct:.3f} s on the CPU", flush=True)
+    check(lerr <= TRAIN_PARITY_LOSS_RTOL, f"card vs cpu loss rel {lerr}")
+    check(gerr <= TRAIN_PARITY_GNORM_RTOL,
+          f"card vs cpu grad norm rel {gerr}")
+
+
+def train_phase(torch, seed: int):
+    """Training: qwen3-1.7b at full width and depth through `train()` (the
+    prefetch pipeline on the card, AdamW), then the restart check and the
+    card-vs-CPU step. The train path launches no kernel of the port (the
+    reference trains through its plain attention): the launch counts are
+    set to 0 before the main run and must stay 0. Returns ({}, report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    cfg = get_config(TRAIN_ARCH)
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.remat, cfg.attn_impl)
+          == ("float32", "bfloat16", True, "xla"),
+          f"not the reference's train configuration: {cfg}")
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    report = train_main_run(torch, cfg, shape, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(train_restart_check(torch, cfg, shape, seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_parity_check(torch, get_config(TRAIN_ARCH), seed)
+    return {}, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4548,7 +4817,8 @@ def main() -> int:
     done()
 
     for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase),
-                      ("6 sharded store", sharded_phase)):
+                      ("6 sharded store", sharded_phase),
+                      ("7 train", train_phase)):
         done = phase(name)
         more, _ = run(torch, args.seed)
         for k, v in more.items():

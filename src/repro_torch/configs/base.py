@@ -5,6 +5,8 @@ ported slices read, under the same names and with the same defaults (the
 GQA transformer family the serving engine drives, and hymba's hybrid
 attention + mamba block); `StoreConfig` carries the kvstore fields. The
 MLA, MoE and xLSTM fields wait for the slices that port those blocks.
+`ShapeConfig` and `SHAPES` are the reference's assigned input-shape
+cells.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ class ModelConfig:
     vocab_pad_to: int = 256
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: bool = True               # recompute each layer in the backward
     attn_impl: str = "xla"           # xla | xla_flash (the flash kernel)
     attn_block_q: int = 512          # q-chunking of the prefill attention
     scan_chunk: int = 256            # mamba chunk length
@@ -81,3 +84,35 @@ class StoreConfig:
 
     def replace(self, **kw) -> "StoreConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs allowed to run long_500k (sub-quadratic or recurrent decode
+# state); pure full-attention archs skip it
+LONG_CONTEXT_OK = {"xlstm-1.3b", "hymba-1.5b"}
+
+
+def cells_for(arch_name: str) -> list[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch_name in LONG_CONTEXT_OK or arch_name == "paper-kvstore":
+        out.append("long_500k")
+    return out

@@ -137,3 +137,16 @@ def handle_valid(pool: BlockPool, handles: torch.Tensor) -> torch.Tensor:
     safe = torch.clamp(ids, 0, pool.num_blocks - 1)
     return (ok_id & (_gen_u64(pool.gen[safe]) == shr(handles, 32))
             & pool.in_use[safe])
+
+
+def expected_blocks_in_use(n_ops: int, block_size: int) -> float:
+    """Paper eq. (5): the average number of blocks in use over all valid
+    prefixes of `n_ops` news and deletes with blocks of `block_size`,
+
+      sum_{k=1..N} sum_{i=0..k} ceil((k-i)/C) / sum_{i=1..N} i
+
+    (k news, i deletes, C the block size)."""
+    num = 0
+    for k in range(1, n_ops + 1):
+        num += sum(-(-(k - i) // block_size) for i in range(k + 1))
+    return num / (n_ops * (n_ops + 1) // 2)

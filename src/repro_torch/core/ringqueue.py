@@ -233,3 +233,17 @@ def pop_batch(q: RingQueue, n_lanes: int, want: torch.Tensor | None = None):
                     head_blk=head_blk, popped=q.popped + k.to(torch.int64))
     return q2, vals, got
 
+
+def push_one(q: RingQueue, val) -> tuple[RingQueue, torch.Tensor]:
+    """Push one value (a u64 as its int64 bit pattern). Returns (q', ok)."""
+    dev = q.data.device
+    vals = torch.as_tensor([val], dtype=q.data.dtype, device=dev)
+    q2, ok = push_batch(q, vals, torch.ones(1, dtype=torch.bool, device=dev))
+    return q2, ok[0]
+
+
+def pop_one(q: RingQueue):
+    """Pop one value. Returns (q', val, got); val is 0 when nothing was
+    there."""
+    q2, vals, got = pop_batch(q, 1)
+    return q2, vals[0], got[0]

@@ -8,5 +8,6 @@ mlp        SwiGLU
 attention  GQA forward / prefill / decode
 ssm        the mamba head (selective_scan kernel)
 blocks     the dense and hymba blocks
-model      init_params, forward, prefill, prefill_with_past, decode_step
+model      init_params, forward, prefill, prefill_with_past, decode_step,
+           cross_entropy
 """

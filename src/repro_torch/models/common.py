@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fused
 from repro_torch.kernels.flash_attention.ref import attend_flash_ref
-from repro_torch.store import exec as exec_
+from repro_torch import exec as exec_
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 NEG_INF = float("-inf")
@@ -111,17 +111,19 @@ def attend_causal(q, k, v, window: int = 0, compute_dtype="bfloat16",
     of any length prefill.
 
     impl="xla_flash": the online-softmax flash algorithm, no [.., Sk]-wide
-    score tensor. The exec mode (`store.exec`) picks its form: `gpu` (the
-    default) launches the `flash_attention` CUDA kernel (64-key tiles,
-    tensor cores) and refuses CPU tensors; `torch` runs the plain mirror
+    score tensor. The exec mode (`repro_torch.exec`) picks its form: `gpu`
+    (the default) launches the `flash_attention` CUDA kernel (64-key
+    tiles, tensor cores), which is forward-only: it refuses inputs that
+    autograd tracks, and CPU tensors; `torch` runs the plain mirror
     of the reference's `_attend_flash_xla` over `block_q`-square tiles
     (`kernels.flash_attention.ref.attend_flash_ref`). Both round q, k, p
     and v to bf16 and sum in f32 as the reference does; p is rounded after
     its tile's running max, so the two agree to bf16 level. Like "xla",
     the last q or kv tile may be shorter than the reference allows."""
     if impl == "xla_flash":
-        if exec_._resolve(None) == "gpu":
-            exec_._gpu_tensors("attend_causal", q)
+        if exec_.resolve(None) == "gpu":
+            exec_.no_autograd("flash_attention", q, k, v)
+            exec_.gpu_tensors("attend_causal", q)
             return flash_attention_fused(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 q_offset=q_offset, window=window,

@@ -12,11 +12,17 @@ reference's `[n_groups, ...]` leaves for a period of one block.
   prefill            + contiguous KV caches
   prefill_with_past  suffix prefill after cached prefix KV
   decode_step        one token against the caches
+  cross_entropy      the training loss over `forward`'s logits
+
+With `cfg.remat` and grad enabled, `forward` keeps only each layer's
+input and recomputes the layer in the backward pass (the reference's
+`jax.checkpoint` of a layer group).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (block_decode, block_forward,
                                        block_kinds, block_prefill,
@@ -84,8 +90,13 @@ def forward(p: LM, cfg, tokens, positions=None):
     if positions is None:
         positions = _positions(b, s, 0, x.device)
     kind = block_kinds(cfg)[0]
+    remat = cfg.remat and torch.is_grad_enabled()
     for bp, win in zip(p.blocks, layer_windows(cfg)):
-        x, _ = block_forward(bp, cfg, kind, x, positions, win)
+        if remat:
+            x, _ = checkpoint(block_forward, bp, cfg, kind, x, positions,
+                              win, use_reentrant=False)
+        else:
+            x, _ = block_forward(bp, cfg, kind, x, positions, win)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     return _head(p, cfg, x), torch.zeros((), device=x.device)
 
@@ -136,3 +147,17 @@ def decode_step(p: LM, cfg, token, pos, caches):
         new.append(c)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     return _head(p, cfg, x), _stack(new)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean f32 negative log-likelihood of `labels` [B,S] under `logits`
+    [B,S,V], over the positions where the optional [B,S] `mask` is set."""
+    if logits.ndim == 4:
+        raise NotImplementedError("codebook models are not ported yet")
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)

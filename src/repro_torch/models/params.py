@@ -9,6 +9,11 @@ same values, and `load_compute_copy(ct)` makes those casts once, at load,
 for the names in `MATMUL`: serving a bf16 model from f32 parameters then
 reads 2 bytes a weight per decode step instead of casting 1.7 B
 parameters on every step.
+
+A load-time copy is detached and goes stale after an update, so it is
+for inference only: `make_trainable()` drops every copy and makes every
+parameter require grad, and `w` refuses a copy while grad is enabled for
+a parameter that requires it.
 """
 from __future__ import annotations
 
@@ -34,9 +39,27 @@ class Weights(nn.Module):
         """Parameter `name` in the compute dtype (its load-time copy when
         one was made)."""
         c = self._compute.get(name)
-        if c is not None and c.dtype == dtype_of(compute_dtype):
+        if c is None:
+            return cast(getattr(self, name), compute_dtype)
+        if torch.is_grad_enabled() and getattr(self, name).requires_grad:
+            raise RuntimeError(
+                f"{type(self).__name__}.{name}: a load-time compute copy "
+                f"is detached from its parameter, so gradients through it "
+                f"would be wrong; train after make_trainable(), which drops "
+                f"the copies")
+        if c.dtype == dtype_of(compute_dtype):
             return c
         return cast(getattr(self, name), compute_dtype)
+
+    def make_trainable(self) -> "Weights":
+        """Drop the load-time compute copies of this module and every
+        submodule, and make every parameter require grad."""
+        for mod in self.modules():
+            if isinstance(mod, Weights):
+                mod._compute = {}
+        for t in self.parameters():
+            t.requires_grad_(True)
+        return self
 
     def load_compute_copy(self, compute_dtype: str) -> None:
         """Cast the `MATMUL` parameters of this module and every submodule

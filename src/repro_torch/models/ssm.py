@@ -6,9 +6,10 @@ State per layer: {"conv": [B, K-1, d_inner] (compute dtype),
 `mamba_forward`; a decode step is a sequence of length 1 from the cached
 state.
 
-The exec mode (`store.exec`) picks the scan: `gpu` (the default) launches
-the `selective_scan` CUDA kernel on (x_conv, dt, B, C, A, h0) and refuses
-CPU tensors; `torch` runs the reference's chunked associative scan
+The exec mode (`repro_torch.exec`) picks the scan: `gpu` (the default)
+launches the `selective_scan` CUDA kernel on (x_conv, dt, B, C, A, h0),
+which is forward-only: it refuses inputs that autograd tracks, and CPU
+tensors; `torch` runs the reference's chunked associative scan
 (`kernels.selective_scan.ref.selective_scan_chunked`). The D skip, the
 SiLU gate and the output projection stay plain ops around the scan in
 both, as they sit outside the reference's Pallas kernel.
@@ -22,7 +23,7 @@ from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.params import Weights
-from repro_torch.store import exec as exec_
+from repro_torch import exec as exec_
 
 
 class Mamba(Weights):
@@ -80,13 +81,15 @@ def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
     ct = cfg.compute_dtype
     if state is None:
         state = init_state(cfg, b, x.device, dtype_of(ct))
-    gpu = exec_._resolve(None) == "gpu"
+    gpu = exec_.resolve(None) == "gpu"
     if gpu:
         if cfg.ssm_scan_dtype != "float32":
             raise NotImplementedError(
                 f"the selective_scan kernel runs in float32; ssm_scan_dtype "
                 f"{cfg.ssm_scan_dtype!r} runs in exec mode 'torch' only")
-        exec_._gpu_tensors("mamba_forward", x)
+        exec_.no_autograd("selective_scan", x, state["ssm"],
+                          *p.parameters())
+        exec_.gpu_tensors("mamba_forward", x)
     xz = x @ p.w("in_proj", ct)
     xc, z, new_conv = _mamba_core(p, cfg, xz, state["conv"])
     dbc = xc @ p.w("x_proj", ct)                                # [B,S,1+2n]

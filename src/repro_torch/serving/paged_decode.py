@@ -4,7 +4,7 @@ family.
 
 Per layer: project q/k/v for the new token, write its K/V into its page
 (before attending: the token attends to itself), paged attention over the
-pool pages, then the MLP. The exec mode (`store.exec`) picks the
+pool pages, then the MLP. The exec mode (`repro_torch.exec`) picks the
 attention: `gpu` (the default) launches the `paged_attention` CUDA kernel
 and refuses CPU tensors; `torch` runs the plain version, as the
 reference's `use_kernel=False` runs its jnp oracle. The pools are written
@@ -21,7 +21,7 @@ from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.models.mlp import mlp
 from repro_torch.models.model import _head
 from repro_torch.serving.kvcache import PagedKV, decode_write_lanes
-from repro_torch.store import exec as exec_
+from repro_torch import exec as exec_
 
 
 def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
@@ -35,8 +35,8 @@ def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
     b = tokens.shape[0]
     if mask is None:
         mask = torch.ones(b, dtype=torch.bool, device=tokens.device)
-    if exec_._resolve(mode) == "gpu":
-        exec_._gpu_tensors("paged_decode_step", tokens, kv.k)
+    if exec_.resolve(mode) == "gpu":
+        exec_.gpu_tensors("paged_decode_step", tokens, kv.k)
         attend = paged_attention
     else:
         attend = paged_attention_ref

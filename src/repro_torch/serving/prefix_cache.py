@@ -24,7 +24,7 @@ from repro_torch.core.bits import from_u64, hash64
 from repro_torch.core.blockpool import BlockPool, handle_valid
 from repro_torch.core.layout import resolve_device
 from repro_torch.store import engine as engine_mod
-from repro_torch.store import exec as exec_
+from repro_torch import exec as exec_
 from repro_torch.store.api import OP_FIND, OP_INSERT, OP_NONE
 
 BACKEND = "obs:tiered3/lru"

@@ -20,6 +20,10 @@ probes of the structures the reference never kernelized:
 `rand_skiplist_find`, `twolevel_hash_find` and `splitorder_find`
 (`twolevel_splitorder_find` launches the `splitorder_probe` kernel).
 
+The mode switch itself (`set_mode`, `get_mode`, `exec_mode`) lives in
+`repro_torch.exec`, which the models and the serving layer read too; it
+is re-exported here.
+
 Every entry counts as ONE dispatch of kind "probe" or "update"; in an
 eager framework the count is per call, i.e. per launch of the step.
 `measure_dispatches()` yields a context-local, nestable `DispatchMeter`.
@@ -33,51 +37,11 @@ from contextvars import ContextVar
 import torch
 
 from repro_torch.core.layout import warm_layout_of
+from repro_torch.exec import (MODES, exec_mode, get_mode,  # noqa: F401
+                              set_mode)
+from repro_torch.exec import gpu_tensors as _gpu_tensors
+from repro_torch.exec import resolve as _resolve
 from repro_torch.store import obs
-
-MODES = ("torch", "gpu")
-
-
-def _check(mode: str) -> str:
-    if mode not in MODES:
-        raise ValueError(f"unknown store exec mode {mode!r}; one of {MODES}")
-    return mode
-
-
-_MODE: ContextVar[str] = ContextVar("repro_torch_exec_mode", default="gpu")
-
-
-def set_mode(mode: str) -> None:
-    _MODE.set(_check(mode))
-
-
-def get_mode() -> str:
-    """The current mode (the `exec_mode` override, else "gpu")."""
-    return _MODE.get()
-
-
-@contextmanager
-def exec_mode(mode: str | None):
-    """Scoped mode override (None keeps the current mode)."""
-    token = _MODE.set(_check(mode)) if mode is not None else None
-    try:
-        yield
-    finally:
-        if token is not None:
-            _MODE.reset(token)
-
-
-def _resolve(mode: str | None) -> str:
-    return _check(mode) if mode is not None else _MODE.get()
-
-
-def _gpu_tensors(name: str, *tensors) -> None:
-    """gpu mode runs CUDA kernels: refuse CPU tensors."""
-    for t in tensors:
-        if torch.is_tensor(t) and not t.is_cuda:
-            raise RuntimeError(f"exec mode 'gpu' ({name}) needs CUDA tensors; "
-                               f"use exec mode 'torch' on the CPU")
-
 
 # ---------------------------------------------------------------------------
 # dispatch accounting (context-local, nestable)

@@ -1,0 +1,105 @@
+"""Train and serve step builders (counterpart of `repro.train.step`).
+
+train_step:
+  * microbatch gradient accumulation in f32, in order, then x 1/n
+  * remat per layer (the model's `cfg.remat`)
+  * AdamW with global-norm clipping on the warmup + cosine schedule
+
+Parameters are the model's `nn.Module`, trainable (`make_trainable`);
+a step updates them and the optimizer state in place and returns them.
+The reference's int8 error-feedback exchange on a pod axis
+(`pod_compress`) needs `optim/compress.py` and `parallel/`, which later
+slices port.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import adamw_update
+from repro_torch.optim.schedule import cosine_with_warmup
+
+AUX_WEIGHT = 0.01
+
+
+def loss_fn(params, cfg, batch):
+    """(loss + AUX_WEIGHT * aux, (loss, aux)) of one batch."""
+    if batch.get("prefix_embeds") is not None:
+        raise NotImplementedError("frontend prefix embeddings are not "
+                                  "ported yet")
+    logits, aux = M.forward(params, cfg, batch["tokens"])
+    loss = M.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+    return loss + AUX_WEIGHT * aux, (loss, aux)
+
+
+def _split_micro(batch, n: int) -> list[dict]:
+    return [{k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+             for k, v in batch.items()} for i in range(n)]
+
+
+def grads_of(params, cfg, batch, microbatches: int = 1):
+    """(grads, loss, aux) over `microbatches` equal slices of the batch,
+    in order: each slice's gradients summed into the parameters' `.grad`
+    (f32, the dtype of every ported config's parameters), then scaled by
+    1/n. `grads` maps each parameter's name to its `.grad`."""
+    named = dict(params.named_parameters())
+    for p in named.values():
+        p.grad = None
+    loss_acc = aux_acc = 0.0
+    for mb in (_split_micro(batch, microbatches) if microbatches > 1
+               else [batch]):
+        total, (loss, aux) = loss_fn(params, cfg, mb)
+        total.backward()            # .grad accumulates: acc + g, in order
+        loss_acc = loss_acc + loss.detach()
+        aux_acc = aux_acc + aux.detach()
+    grads = {name: p.grad for name, p in named.items()}
+    if microbatches > 1:
+        inv = 1.0 / microbatches
+        torch._foreach_mul_(list(grads.values()), inv)
+        return grads, loss_acc * inv, aux_acc * inv
+    return grads, loss_acc, aux_acc
+
+
+def make_train_step(cfg, *, lr_peak=3e-4, warmup=100, total_steps=10000,
+                    microbatches: int = 1, pod_compress: bool = False,
+                    mesh=None, pod_axis: str = "pod"):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), the first two updated in place."""
+    if pod_compress:
+        raise NotImplementedError(
+            "pod_compress: the int8 error-feedback gradient exchange needs "
+            "optim/compress.py and parallel/, which later slices of the "
+            "port bring")
+
+    def train_step(params, opt_state, batch):
+        grads, loss, aux = grads_of(params, cfg, batch, microbatches)
+        lr = cosine_with_warmup(opt_state["adam"]["step"] + 1,
+                                peak_lr=lr_peak, warmup_steps=warmup,
+                                total_steps=total_steps)
+        params, adam, gn = adamw_update(grads, opt_state["adam"], params, lr)
+        for p in params.parameters():
+            p.grad = None
+        metrics = {"loss": loss, "aux": aux, "grad_norm": gn, "lr": lr}
+        return params, {**opt_state, "adam": adam}, metrics
+
+    return train_step
+
+
+def make_serve_prefill(cfg, cache_len: int):
+    def serve_prefill(params, batch):
+        if batch.get("prefix_embeds") is not None:
+            raise NotImplementedError("frontend prefix embeddings are not "
+                                      "ported yet")
+        with torch.no_grad():
+            logits, caches, _ = M.prefill(params, cfg, batch["tokens"],
+                                          cache_len)
+        return logits[:, -1], caches
+    return serve_prefill
+
+
+def make_serve_decode(cfg):
+    def serve_decode(params, token, pos, caches):
+        with torch.no_grad():
+            logits, caches = M.decode_step(params, cfg, token, pos, caches)
+        return logits[:, 0], caches
+    return serve_decode

@@ -2,9 +2,11 @@
 """Where a plan's time goes in the PyTorch/CUDA port, per backend, on the
 main path's own stream; with --serve, where the serving engine's time
 goes; with --hymba, where hymba-1.5b's prefill and decode time goes;
-with --sharded, where the sharded store engine's time goes.
+with --sharded, where the sharded store engine's time goes; with
+--train, where a training step's time goes.
 
-    python3 tools/torch_store_profile.py [--serve | --hymba | --sharded]
+    python3 tools/torch_store_profile.py [--serve | --hymba | --sharded |
+                                          --train]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -45,6 +47,12 @@ tiered3/lru behind the sharded `StoreEngine` on the production mesh
 `make_shard_stream`: every preload step but the last runs unprofiled,
 then three windows, the last preload step and each workload's steps,
 with the same columns per step (2^20 lanes).
+
+--train profiles chip_smoke.py's train cell: qwen3-1.7b at full width
+and depth (f32 parameters and AdamW moments, bf16 compute, remat,
+attn_impl "xla"), one step of 8 x 4,096 tokens in 4 microbatches after an
+unprofiled one, its batch from `synth_batch` on the card, with the same
+columns per step.
 """
 from __future__ import annotations
 
@@ -224,6 +232,35 @@ def hymba_profile(torch, cs, exec_) -> None:
            HYMBA_DECODE_STEPS, f"{b} lanes", "step", "hymba decode")
 
 
+def train_profile(torch, cs, exec_) -> None:
+    """chip_smoke's train cell: one profiled train step after an
+    unprofiled one."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = get_config(cs.TRAIN_ARCH)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=cs.TRAIN_BATCH)
+    st = {"params": M.init_params(cfg, torch.Generator("cuda").manual_seed(0)
+                                  ).make_trainable(), "step": 0}
+    st["opt"] = {"adam": adamw_init(st["params"])}
+    step = make_train_step(cfg, microbatches=cs.TRAIN_MICRO)
+
+    def run():
+        batch = synth_batch(cfg, shape, 0, st["step"], device="cuda")
+        st["params"], st["opt"], m = step(st["params"], st["opt"], batch)
+        float(m["loss"])
+        st["step"] += 1
+
+    run()
+    report(torch, exec_, run, 1, f"{shape.global_batch} x {shape.seq_len} "
+           f"tokens, {cs.TRAIN_MICRO} microbatches", "step", "train step")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -242,6 +279,9 @@ def main() -> int:
         return 0
     if "--hymba" in sys.argv[1:]:
         hymba_profile(torch, cs, exec_)
+        return 0
+    if "--train" in sys.argv[1:]:
+        train_profile(torch, cs, exec_)
         return 0
     if "--sharded" in sys.argv[1:]:
         sharded_profile(torch, cs, exec_)
