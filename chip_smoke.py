@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
-hymba-1.5b's prefill and decode, the sharded store, and training) on one
-GPU and check it.
+hymba-1.5b's prefill and decode, the sharded store, training, and the
+MoE family's serving) on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -211,8 +211,32 @@ is non-zero and no result line is printed):
    ms a step (steps 1 on), tokens/s, peak GiB beside the memory
    reckoning, `pipe.get` ms a step, checkpoint save and restore s and
    MB/s.
-8. The calls by shape of the store kernels over phases 3-6, a `kernels`
-   JSON line, then the last line
+8. MoE serving: llama4-scout-17b-a16e and then qwen3-moe-235b-a22b at
+   full width (d_model, heads, experts, d_expert and vocab as published)
+   and depth cut to 3 layers (seeded f32 parameters and a bf16 copy,
+   ~52 GB each), one after the other with the card freed between them,
+   behind `Engine` (16 slots, 1,024 pages of 16 tokens) on phase 4's
+   trace cut to 16 requests, in exec mode gpu with the config's own
+   `moe_impl` (no mesh open: the dense dispatch). The checks of phase 4
+   (every request, the pool, pops, paged_attention launches == decode
+   steps x 3, the kernels of the scheduler and the prefix cache); check
+   (b) on the first 4 decode steps with its planted faults, a lane whose
+   experts differ between the plain and the gpu attention left out only
+   at a near tie of the router (margin below MOE_ROUTE_MARGIN) and
+   counted; check (a) in f32 on 2 prompts x 8 tokens. The paper's routing
+   at full width: layer 0's FFN input of the first prefill folded onto a
+   (1, 16) ("data", "model") mesh; replicated_psum drops the dense
+   dispatch's lanes and gives its output, routed_a2a gives it on every
+   token neither dropped a lane of, within 2 bf16 steps of max |y|; a
+   planted fault (the most chosen expert's bucket on the wrong shard)
+   must break that bound. Prints decode tokens/s, ms per decode step,
+   prefill tokens/s, each dispatch's dropped lanes and FFN ms a layer,
+   and the peak GiB beside the weights; then paged_attention at each
+   arch's decode shape (G 5 with 8 KV heads, G 16 with 4, D 128) in
+   bf16 against its plain version, timed beside SDPA and its bound.
+9. The calls by shape of the store kernels over phases 3-6 and 8, a
+   `kernels` JSON line (with phase 8's two paged_attention rows, each
+   with its `shape`), then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -432,6 +456,17 @@ BF16_TENSOR_OPS_PER_S = 989e12
 # exceed that share (PERF.md)
 FLASH_OFF_SHARE = 1e-6
 EXP_PER_S = 16 * 132 * 1.98e9
+
+
+@functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """The card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` gives them (first card)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, "nvidia-smi")
+    return smi.stdout.strip().splitlines()[0]
 
 
 def check(cond, msg: str) -> None:
@@ -2539,18 +2574,20 @@ def kernel_phase(torch, seed: int):
 # phase 2, row 8: paged attention at the served decode shapes
 # ---------------------------------------------------------------------------
 
-def paged_attention_inputs(torch, rng, dtype):
-    """The served decode batch of one qwen3-1.7b layer: q [B, H, D], pools
-    of the served engine's size, tables [B, P] with seeded lengths 1..P * page and
-    the edge rows: row 0 a -1 page in the middle, row 1 length 1, row 2 a
-    length ending mid-page, row 3 a -1 tail (its last two pages are -1
-    while its length covers them)."""
+def paged_attention_inputs(torch, rng, dtype, arch=SERVE_ARCH,
+                           batch=SERVE_BATCH, num_pages=SERVE_NUM_PAGES):
+    """The served decode batch of one layer of `arch`: q [B, H, D], pools
+    of `num_pages` pages, tables [B, P] with seeded lengths 1..P * page
+    (at most num_pages / B pages a request) and the edge rows: row 0 a -1
+    page in the middle, row 1 length 1, row 2 a length ending mid-page,
+    row 3 a -1 tail (its last two pages are -1 while its length covers
+    them)."""
     from repro_torch.configs import get_config
-    cfg = get_config(SERVE_ARCH)
-    B, H, HKV, D = (SERVE_BATCH, cfg.n_heads, cfg.n_kv_heads,
+    cfg = get_config(arch)
+    B, H, HKV, D = (batch, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
-    page, P, N = SERVE_PAGE, SERVE_PAGES_PER_REQ, SERVE_NUM_PAGES
-    lengths = rng.integers(1, P * page + 1, B).astype(np.int32)
+    page, P, N = SERVE_PAGE, SERVE_PAGES_PER_REQ, num_pages
+    lengths = rng.integers(1, min(P, N // B) * page + 1, B).astype(np.int32)
     lengths[1], lengths[2], lengths[3] = 1, page * 5 + 7, page * 10
     tables = np.full((B, P), -1, np.int32)
     ids = rng.permutation(N)
@@ -2585,9 +2622,6 @@ def paged_attention_row(torch, rng):
     timed). The bound: the K/V rows of the tokens below each length on the
     live pages (id >= 0), q, out, the table entries below each length and
     the lengths, over the HBM rate."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.kernel import \
-        paged_attention_grouped
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     errs = {}
@@ -2616,6 +2650,18 @@ def paged_attention_row(torch, rng):
     paged_attention_faults(torch, q, kp, vp, tables, lengths, ref)
     paged_attention_edges(torch, rng, kp, vp)
     paged_attention_groups(torch, rng)
+    return paged_attention_timing(torch, q, kp, vp, tables, lengths, ref,
+                                  max(errs.values()))
+
+
+def paged_attention_timing(torch, q, kp, vp, tables, lengths, ref, err):
+    """The kernel's, the plain version's and SDPA's times on one bf16
+    decode batch, beside the bound (`paged_attention_row`)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.kernel import \
+        paged_attention_grouped
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     b, h, d = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
     qg = q.reshape(b, hkv, h // hkv, d)
@@ -2647,7 +2693,7 @@ def paged_attention_row(torch, rng):
     lib = library()
     check(float((lib[:, :, 0].float() - ref).abs().max()) <= 3e-2,
           "scaled_dot_product_attention agrees with the plain version")
-    r = dict(max_abs_err=max(errs.values()), lanes=b,
+    r = dict(max_abs_err=err, lanes=b,
              ms=median_ms(torch, lambda: paged_attention_grouped(
                  qg, kp, vp, tables, lengths)),
              plain_ms=median_ms(torch, lambda: paged_attention_ref(
@@ -3599,6 +3645,53 @@ def planted_fault(torch, name):
     return fault
 
 
+def recorded_routes(torch, sink: list):
+    """A context in which every `moe.router_probs` call appends (the
+    sorted expert ids [T, k], the router logit margin between the k-th
+    and the (k+1)-th expert [T]) to `sink`."""
+    from repro_torch.models import moe
+    route = moe.router_probs
+
+    def recording(p, cfg, x):
+        w, idx, aux = route(p, cfg, x)
+        top = torch.topk(x.float() @ p.router.float(),
+                         cfg.n_experts_active + 1, dim=-1).values
+        sink.append((torch.sort(idx, dim=-1).values, top[..., -2]
+                     - top[..., -1]))
+        return w, idx, aux
+
+    @contextlib.contextmanager
+    def ctx():
+        moe.router_probs = recording
+        try:
+            yield
+        finally:
+            moe.router_probs = route
+    return ctx()
+
+
+def route_flips(torch, plain, gpu, n, report):
+    """Lanes (of the first n) whose experts differ between the plain and
+    the gpu run at any layer. At the first layer where a lane's experts
+    differ, the plain router's margin at the top-k edge must be below
+    MOE_ROUTE_MARGIN (a near tie that the attention's order of sums
+    decides; the later layers then see another FFN output); the flipped
+    lanes are counted and returned, to be left out of the logit bound."""
+    flipped = torch.zeros(n, dtype=torch.bool, device=DEV)
+    for (pi, pm), (gi, _) in zip(plain, gpu):
+        diff = (pi[:n] != gi[:n]).any(-1)
+        first = diff & ~flipped
+        if bool(first.any()):
+            worst = float(pm[:n][first].max())
+            report["flip_margins"].append(worst)
+            check(worst < MOE_ROUTE_MARGIN, f"check (b): a lane's experts "
+                  f"changed between the plain and the gpu attention at a "
+                  f"router margin of {worst:.4f} >= {MOE_ROUTE_MARGIN}")
+        flipped |= diff
+    report["route_flips"] += int(flipped.sum())
+    return flipped
+
+
 def serve_decode_checked(torch, engine, n_steps, report):
     """Wrap `engine._decode` so its first `n_steps` decode steps also run
     the plain attention (exec mode torch) on the same state first: on the
@@ -3609,18 +3702,23 @@ def serve_decode_checked(torch, engine, n_steps, report):
     too, and its distance from the plain logits is recorded beside the
     bound. The plain and faulted runs write the same token slots that the
     gpu run then overwrites, so the state goes on as the gpu run leaves
-    it."""
+    it. In an MoE model a lane whose experts differ between the plain and
+    the gpu run (`route_flips`) is left out of the bound and counted."""
     from repro_torch.serving import paged_decode
     from repro_torch.store import exec as exec_
     decode = engine._decode
     plain_attend = paged_decode.paged_attention_ref
+    report.setdefault("route_flips", 0)
+    report.setdefault("flip_margins", [])
 
     def checked(toks, slots, mask):
         if report["steps"] >= n_steps:
             return decode(toks, slots, mask)
         n = int(mask.sum())
+        routes = {"plain": [], "gpu": []}
         with exec_.exec_mode("torch"):
-            plain, _ = decode(toks, slots, mask)
+            with recorded_routes(torch, routes["plain"]):
+                plain, _ = decode(toks, slots, mask)
             p = plain[:n]
             faulted = {}
             for name in SERVE_B_FAULTS:
@@ -3630,8 +3728,11 @@ def serve_decode_checked(torch, engine, n_steps, report):
                 finally:
                     paged_decode.paged_attention_ref = plain_attend
                 faulted[name] = float((f[:n] - p).abs().max())
-        logits, kv = decode(toks, slots, mask)
-        g = logits[:n]
+        with recorded_routes(torch, routes["gpu"]):
+            logits, kv = decode(toks, slots, mask)
+        keep = ~route_flips(torch, routes["plain"], routes["gpu"], n, report)
+        check(bool(keep.any()), "check (b): every lane's experts changed")
+        g, p = logits[:n][keep], p[keep]
         big = float(p[:, :engine.cfg.vocab_size].abs().max())
         step = 2.0 ** (math.floor(math.log2(big)) - 7)
         tol = SERVE_B_ULPS * step
@@ -3652,55 +3753,194 @@ def serve_decode_checked(torch, engine, n_steps, report):
     engine._decode = checked
 
 
-def serve_reference_check(torch, cfg, params, trace):
-    """Check (a): f32 compute at full width and depth. The first
-    SERVE_A_PROMPTS trace prompts, SERVE_A_NEW tokens each, through the
-    Engine in exec mode gpu; the engine's own tokens are then fed to the
-    port's contiguous `prefill` + `decode_step`, and each engine token must
-    be the reference's argmax unless the reference's top-2 margin at that
-    step is below SERVE_A_MARGIN (those steps are counted). Returns
-    (steps checked, low-margin steps)."""
+@contextlib.contextmanager
+def f32_decode_attention(torch):
+    """The contiguous decode attention (`models.attention.gqa_decode`)
+    with its operands left in f32, as the paged attention keeps them."""
+    from repro_torch.models import attention
+    rounded = attention.bf16_einsum
+    attention.bf16_einsum = lambda eq, a, b: torch.einsum(eq, a.float(),
+                                                          b.float())
+    try:
+        yield
+    finally:
+        attention.bf16_einsum = rounded
+
+
+def serve_reference_check(torch, cfg, params, trace,
+                          n_prompts=SERVE_A_PROMPTS, n_new=SERVE_A_NEW,
+                          n_pages=SERVE_A_PAGES):
+    """Check (a): f32 compute at full width. The first `n_prompts` trace
+    prompts, `n_new` tokens each, through the Engine in exec mode gpu;
+    the engine's own tokens are then fed to the port's contiguous
+    `prefill` + `decode_step`, and each engine token must be the
+    reference's argmax unless the reference's top-2 margin at that step
+    is below SERVE_A_MARGIN (those steps are counted). The contiguous
+    decode attention rounds q and the softmax weights to bf16 where the
+    paged one (kernel and plain version alike) keeps them in f32, so the
+    reference's decode steps run with that rounding off
+    (`f32_decode_attention`): the two then differ only in the order of
+    their f32 sums. In an MoE model the engine's and the reference's
+    experts are recorded at every decode token; a token whose experts
+    differ at some layer is left out (and counted) only where the
+    reference's router margin at the first such layer is below
+    MOE_ROUTE_MARGIN, and from
+    that token on the two caches hold different K/V for it, so the
+    request's later tokens are left out too (and counted). Returns
+    (steps checked, low-margin steps, steps left out at and after a
+    route tie)."""
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
     cfg32 = cfg.replace(compute_dtype="float32")
-    reqs = trace[:SERVE_A_PROMPTS]
-    eng = Engine(cfg32, params, max_reqs=SERVE_A_PROMPTS,
-                 num_pages=SERVE_A_PAGES, page_size=SERVE_PAGE,
-                 max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV)
+    reqs = trace[:n_prompts]
+    eng = Engine(cfg32, params, max_reqs=n_prompts, num_pages=n_pages,
+                 page_size=SERVE_PAGE, max_pages_per_req=SERVE_PAGES_PER_REQ,
+                 device=DEV)
     for r in reqs:
         eng.submit(Request(req_id=r.req_id, prompt=r.prompt,
-                           max_new=SERVE_A_NEW, priority=r.priority))
-    outs = eng.run(max_steps=4 * SERVE_A_NEW)
-    checked, low = 0, 0
+                           max_new=n_new, priority=r.priority))
+    eng_routes = {}
+    decode = eng._decode
+
+    def recorded(toks, slots, mask):
+        sink = []
+        with recorded_routes(torch, sink):
+            out = decode(toks, slots, mask)
+        for i, slot in enumerate(slots[:int(mask.sum())].tolist()):
+            req = eng.requests[eng.slot_to_req[slot]]
+            eng_routes[req.req_id, len(req.out)] = [idx[i] for idx, _ in sink]
+        return out
+    eng._decode = recorded
+    outs = eng.run(max_steps=4 * n_new)
+    checked, low, ties = 0, 0, 0
     for r in reqs:
         out = outs[r.req_id]
-        check(len(out) == SERVE_A_NEW, f"check (a): request {r.req_id} "
+        check(len(out) == n_new, f"check (a): request {r.req_id} "
               f"gave {len(out)} tokens")
         plen = len(r.prompt)
         toks = torch.from_numpy(r.prompt.astype(np.int64)).to(DEV)[None]
         logits, caches, _ = M.prefill(params, cfg32, toks,
-                                      cache_len=plen + SERVE_A_NEW)
-        lg = logits[0, -1]
-        for t in range(SERVE_A_NEW):
+                                      cache_len=plen + n_new)
+        lg, ref_routes, tied = logits[0, -1], [], False
+        for t in range(n_new):
             top = torch.topk(lg, 2)
             margin = float(top.values[0] - top.values[1])
-            if margin < SERVE_A_MARGIN:
+            # the reference's margin at the first layer whose experts differ
+            flips = [float(m[0]) for (i, m), e in zip(
+                ref_routes, eng_routes.get((r.req_id, t), []))
+                if not torch.equal(i[0], e)]
+            if flips and not tied:
+                check(flips[0] < MOE_ROUTE_MARGIN, f"check (a): request "
+                      f"{r.req_id} token {t}: the experts differ at a "
+                      f"router margin of {flips[0]:.4f}")
+                tied = True
+            if tied:
+                ties += 1
+            elif margin < SERVE_A_MARGIN:
                 low += 1
             else:
                 check(out[t] == int(top.indices[0]), f"check (a): request "
                       f"{r.req_id} token {t}: engine {out[t]} != reference "
                       f"{int(top.indices[0])} (margin {margin:.3e})")
             checked += 1
-            if t + 1 < SERVE_A_NEW:
+            if t + 1 < n_new:
                 tok = torch.tensor([[out[t]]], device=DEV)
                 pos = torch.tensor([plen + t], device=DEV)
-                lgs, caches = M.decode_step(params, cfg32, tok, pos, caches)
+                ref_routes = []
+                with recorded_routes(torch, ref_routes), \
+                        f32_decode_attention(torch):
+                    lgs, caches = M.decode_step(params, cfg32, tok, pos,
+                                                caches)
                 lg = lgs[0, 0]
-    check(int(eng.kv.pool.num_free()) == SERVE_A_PAGES,
+    check(int(eng.kv.pool.num_free()) == n_pages,
           "check (a): pages leaked")
     del eng, caches
     torch.cuda.empty_cache()
-    return checked, low
+    return checked, low, ties
+
+
+def check_served(torch, label, engine, trace, outs, launches, n_pages):
+    """What a served replay must give: every request its `max_new`
+    tokens, every page free, prefix hits, the scheduler's pops, and
+    paged_attention launched once a layer a decode step with the other
+    SERVE_KERNELS launched. Returns the engine's metrics."""
+    from repro_torch.serving import scheduler as SCH
+    from repro_torch.store import obs
+    for r in trace:
+        req = engine.requests[r.req_id]
+        check(req.done and not req.shed and len(outs[r.req_id]) == r.max_new,
+              f"{label}: request {r.req_id} gave {len(outs[r.req_id])} of "
+              f"{r.max_new} tokens")
+    kv = engine.kv
+    check(int(kv.pool.num_free()) == n_pages
+          and not bool(kv.refcount.any()) and not bool(kv.pool.in_use.any())
+          and not bool(kv.active.any()), f"{label}: pages leaked")
+    m = engine.metrics()
+    check(tuple(m) == obs.SERVING_SCHEMA, f"{label}: metrics keys")
+    check(m["prefix_hits"] > 0, f"{label}: no prefix hits")
+    check(m["decode_steps"] == engine.steps and m["ring_depth"] == 0,
+          f"{label}: decode steps and ring depth")
+    pops = SCH.metrics(engine.sched)["pops"]
+    check(pops == len(trace), f"{label}: the scheduler popped {pops}")
+    n_layers = engine.cfg.n_layers
+    check(launches.get("paged_attention", 0) == engine.steps * n_layers,
+          f"{label}: paged_attention launched "
+          f"{launches.get('paged_attention', 0)} times for "
+          f"{engine.steps} decode steps of {n_layers} layers")
+    for name in SERVE_KERNELS:
+        check(launches.get(name, 0) > 0, f"kernel {name} never launched in "
+              f"the {label} path")
+    return m
+
+
+def report_check_b(label, b_report, n_steps):
+    """Print check (b)'s readings and its planted faults' and require
+    them (`serve_decode_checked`)."""
+    flips = ""
+    if b_report["flip_margins"]:
+        flips = (f"; {b_report['route_flips']} lane-steps left out where "
+                 f"the experts changed, at router margins "
+                 f"{b_report['flip_margins']}")
+    print(f"{label} check (b): {n_steps} bf16 decode steps, gpu vs "
+          f"plain attention: max |dlogits| per step {b_report['diff']}, "
+          f"bounds {b_report['tol']}; argmax equal on "
+          f"{b_report['argmax_checked'] - b_report['argmax_flips']} of "
+          f"{b_report['argmax_checked']} lanes with a margin above the "
+          f"bound{flips}", flush=True)
+    check(b_report["steps"] == n_steps and b_report["bad"] == 0
+          and b_report["argmax_flips"] == 0, f"{label} check (b)")
+
+    def fmt(xs):
+        return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
+    print(f"{label} check (b) in bf16 steps at the largest |logit|: gpu vs "
+          f"plain {fmt(b_report['steps_of_diff'])}, bound {SERVE_B_ULPS}",
+          flush=True)
+    for name in SERVE_B_FAULTS:
+        fs = b_report["faults"][name]
+        print(f"{label} check (b) control, plain vs {name}: {fmt(fs)} "
+              f"(min {min(fs):.2f}, max {max(fs):.2f})", flush=True)
+    for name in SERVE_B_MUST_FAIL:
+        check(min(b_report["faults"][name]) > SERVE_B_ULPS, f"{label} check "
+              f"(b): the planted fault '{name}' stays within the bound")
+
+
+def served_times(tr, m, engine, b_steps):
+    """Decode and prefill rates from the engine's spans (decode spans end
+    on the argmax copy, prefill spans on the first token's: both wait for
+    the card), past the first `b_steps` checked decode steps."""
+    dec = [s for s in tr.spans if s.name == "decode"][b_steps:]
+    pre = [s for s in tr.spans if s.name == "prefill"]
+    dec_s = sum(s.dur_ns for s in dec) / 1e9
+    pre_tokens = sum(s.args["plen"] - s.args["shared_pages"] * SERVE_PAGE
+                     for s in pre)
+    pre_s = sum(s.dur_ns for s in pre) / 1e9
+    return dict(
+        decode_tokens_per_s=sum(s.args["batch"] for s in dec) / dec_s,
+        decode_ms_per_step=1e3 * dec_s / len(dec),
+        prefill_tokens_per_s=pre_tokens / pre_s,
+        batch_fill=m["batch_fill"], prefix_hit_rate=m["prefix_hit_rate"],
+        prefix_hits=m["prefix_hits"], decode_steps=engine.steps,
+        prefill_tokens=pre_tokens, prefills=len(pre))
 
 
 def serving_phase(torch, seed: int):
@@ -3714,7 +3954,6 @@ def serving_phase(torch, seed: int):
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.models.model import init_params
-    from repro_torch.serving import scheduler as SCH
     from repro_torch.serving import traffic
     from repro_torch.serving.engine import Engine
     from repro_torch.store import obs
@@ -3752,79 +3991,24 @@ def serving_phase(torch, seed: int):
     print(f"serving: replay {wall:.3f} s, {engine.steps} decode steps, "
           f"launches {json.dumps(launches)}", flush=True)
 
-    # what comes out
-    for r in trace:
-        req = engine.requests[r.req_id]
-        check(req.done and not req.shed and len(outs[r.req_id]) == r.max_new,
-              f"serving: request {r.req_id} gave {len(outs[r.req_id])} of "
-              f"{r.max_new} tokens")
-    kv = engine.kv
-    check(int(kv.pool.num_free()) == SERVE_NUM_PAGES
-          and not bool(kv.refcount.any()) and not bool(kv.pool.in_use.any())
-          and not bool(kv.active.any()), "serving: pages leaked")
-    m = engine.metrics()
-    check(tuple(m) == obs.SERVING_SCHEMA, "serving: metrics keys")
-    check(m["prefix_hits"] > 0, "serving: no prefix hits")
-    check(m["decode_steps"] == engine.steps and m["ring_depth"] == 0,
-          "serving: decode steps and ring depth")
-    pops = SCH.metrics(engine.sched)["pops"]
-    check(pops == len(trace), f"serving: the scheduler popped {pops}")
-    check(launches.get("paged_attention", 0) == engine.steps * cfg.n_layers,
-          f"serving: paged_attention launched "
-          f"{launches.get('paged_attention', 0)} times for "
-          f"{engine.steps} decode steps of {cfg.n_layers} layers")
-    for name in SERVE_KERNELS:
-        check(launches.get(name, 0) > 0, f"kernel {name} never launched in "
-              f"the serving path")
-    print(f"serving check (b): {SERVE_B_STEPS} bf16 decode steps, gpu vs "
-          f"plain attention: max |dlogits| per step {b_report['diff']}, "
-          f"bounds {b_report['tol']}; argmax equal on "
-          f"{b_report['argmax_checked'] - b_report['argmax_flips']} of "
-          f"{b_report['argmax_checked']} lanes with a margin above the "
-          f"bound", flush=True)
-    check(b_report["steps"] == SERVE_B_STEPS and b_report["bad"] == 0
-          and b_report["argmax_flips"] == 0, "serving check (b)")
-
-    def fmt(xs):
-        return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
-    print(f"serving check (b) in bf16 steps at the largest |logit|: gpu vs "
-          f"plain {fmt(b_report['steps_of_diff'])}, bound {SERVE_B_ULPS}",
-          flush=True)
-    for name in SERVE_B_FAULTS:
-        fs = b_report["faults"][name]
-        print(f"serving check (b) control, plain vs {name}: {fmt(fs)} "
-              f"(min {min(fs):.2f}, max {max(fs):.2f})", flush=True)
-    for name in SERVE_B_MUST_FAIL:
-        check(min(b_report["faults"][name]) > SERVE_B_ULPS, f"serving check "
-              f"(b): the planted fault '{name}' stays within the bound")
-
-    # timing from the engine's spans (decode spans end on the argmax
-    # copy, prefill spans on the first token's: both wait for the card)
-    dec = [s for s in tr.spans if s.name == "decode"][SERVE_B_STEPS:]
-    pre = [s for s in tr.spans if s.name == "prefill"]
-    dec_s = sum(s.dur_ns for s in dec) / 1e9
-    pre_tokens = sum(s.args["plen"] - s.args["shared_pages"] * SERVE_PAGE
-                     for s in pre)
-    pre_s = sum(s.dur_ns for s in pre) / 1e9
-    report = dict(
-        decode_tokens_per_s=sum(s.args["batch"] for s in dec) / dec_s,
-        decode_ms_per_step=1e3 * dec_s / len(dec),
-        prefill_tokens_per_s=pre_tokens / pre_s,
-        batch_fill=m["batch_fill"], prefix_hit_rate=m["prefix_hit_rate"],
-        prefix_hits=m["prefix_hits"], decode_steps=engine.steps,
-        prefill_tokens=pre_tokens, replay_s=wall,
-        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    m = check_served(torch, "serving", engine, trace, outs, launches,
+                     SERVE_NUM_PAGES)
+    report_check_b("serving", b_report, SERVE_B_STEPS)
+    report = served_times(tr, m, engine, SERVE_B_STEPS)
+    report.update(replay_s=wall,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"serving decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
           f"{report['decode_ms_per_step']:.3f} ms/step over decode steps "
           f"{SERVE_B_STEPS + 1}..{engine.steps}", flush=True)
     print(f"serving prefill: {report['prefill_tokens_per_s']:.1f} tokens/s "
-          f"({pre_tokens} tokens in {len(pre)} prefills)", flush=True)
+          f"({report['prefill_tokens']} tokens in {report['prefills']} "
+          f"prefills)", flush=True)
     print(f"serving batch fill: {report['batch_fill']:.4f}", flush=True)
     print(f"serving prefix hit rate: {report['prefix_hit_rate']:.4f} "
           f"({m['prefix_hits']} of {m['prefix_lookups']} pages)", flush=True)
     print(f"serving: peak {report['peak_gib']:.2f} GiB allocated", flush=True)
     n_steps = engine.steps
-    del engine, kv
+    del engine
     torch.cuda.empty_cache()
 
     # the fault path: scheduler store drops, recovered from the journal
@@ -3857,7 +4041,7 @@ def serving_phase(torch, seed: int):
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    checked, low = serve_reference_check(torch, cfg, params, trace)
+    checked, low, _ = serve_reference_check(torch, cfg, params, trace)
     print(f"serving check (a): f32, {checked} engine tokens equal the "
           f"contiguous reference's argmax; {low} steps had a top-2 margin "
           f"below {SERVE_A_MARGIN} and were not compared "
@@ -4764,6 +4948,316 @@ def train_phase(torch, seed: int):
     return {}, report
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the MoE family served at full width
+# ---------------------------------------------------------------------------
+
+# Each MoE arch at full width (d_model, heads, experts, d_expert and vocab
+# as published) and 3 layers (of 48 and 94): seeded f32 parameters and
+# their bf16 copy, 6 B a parameter, ~52 GB each (~8.7 B parameters); 4
+# layers (~65-67 GB) leave too little of the 80 GB for pages and dispatch
+# buffers. Served by `Engine` (16 slots, 1,024 pages of 16 tokens) on
+# phase 4's trace cut to 16 requests, with the config's own `moe_impl`
+# (no mesh is open, so the dense dispatch)
+MOE_ARCHS = ("llama4-scout-17b-a16e", "qwen3-moe-235b-a22b")
+MOE_LAYERS = 3
+MOE_BATCH = 16
+MOE_NUM_PAGES = 1024
+MOE_TRACE = dict(SERVE_TRACE, n_requests=16)
+MOE_B_STEPS = 4
+MOE_A_PROMPTS = 2
+MOE_A_NEW = 8
+MOE_A_PAGES = 160
+# check (b): a lane whose experts differ between the gpu and the plain
+# attention is left out of the bound only where the plain router's logit
+# margin at the top-k edge is below this (the two attentions' orders of
+# sums move the bf16 router input by a step or so)
+MOE_ROUTE_MARGIN = 0.05
+# the paper's routing at full width: layer 0's FFN input of the first
+# prefill folded onto a (1, 16) ("data", "model") mesh; the expert-
+# parallel dispatches within 2 bf16 steps of max |y| of the dense one
+MOE_MESH = (("data", "model"), (1, 16))
+MOE_EP_STEPS = 2
+
+
+def bf16_bound(torch, y, steps):
+    """`steps` bf16 steps at the largest |y|."""
+    big = float(y.float().abs().max())
+    return steps * 2.0 ** (math.floor(math.log2(big)) - 7)
+
+
+def ffn_input(torch, cfg, params, prompt):
+    """Layer 0's FFN input [T, D] (in the compute dtype) of the prefill
+    of `prompt`, T cut to a multiple of the mesh's shards."""
+    from repro_torch.models import blocks
+    from repro_torch.models import model as M
+    seen = []
+    ffn_apply = blocks._ffn_apply
+
+    def capture(p, c, x):
+        if not seen:
+            seen.append(x.reshape(-1, x.shape[-1]).clone())
+        return ffn_apply(p, c, x)
+    blocks._ffn_apply = capture
+    try:
+        toks = torch.from_numpy(prompt.astype(np.int64)).to(DEV)[None]
+        M.prefill(params, cfg, toks, cache_len=len(prompt))
+    finally:
+        blocks._ffn_apply = ffn_apply
+    n = math.prod(MOE_MESH[1])
+    return seen[0][:seen[0].shape[0] // n * n]
+
+
+def moe_dispatches(torch, cfg, ffn, x):
+    """(y with the shared expert, dropped lanes per token [T]) of the
+    dense, replicated_psum and routed_a2a dispatches on x [T, D], the
+    latter two simulated on the MOE_MESH shards."""
+    from repro_torch.models import moe
+    from repro_torch.models.mlp import mlp
+    t, d = x.shape
+    dp, tp = MOE_MESH[1]
+    shared = (mlp(ffn.shared, x, cfg.compute_dtype) if cfg.n_shared_experts
+              else 0)
+    y, _, drops = moe.moe_dense_ffn(ffn, cfg, x, return_dropped=True)
+    out = {"dense": (y, drops)}
+    y, _, drops = moe.moe_replicated_psum(
+        ffn, cfg, x.reshape(dp, 1, t // dp, d).expand(dp, tp, t // dp, d),
+        return_dropped=True)
+    out["replicated_psum"] = (y[:, 0].reshape(t, d) + shared,
+                              drops.reshape(t))
+    y, _, drops = moe.moe_routed_a2a(ffn, cfg,
+                                     x.reshape(dp, tp, t // (dp * tp), d),
+                                     return_dropped=True)
+    out["routed_a2a"] = ((y.reshape(t, d) + shared).to(x.dtype),
+                         drops.reshape(t))
+    return out
+
+
+def moe_ep_check(torch, label, cfg, params, prompt):
+    """The paper's routing at full width on layer 0's FFN input of the
+    first prefill (`ffn_input`). Each dispatch's dropped lanes are
+    counted. replicated_psum buckets each expert's lanes in the dense
+    dispatch's order at its capacity, so it must drop the same lanes and
+    give the dense output on every token; routed_a2a buckets by owner and
+    then by expert at its own capacities, so it is held to the dense
+    output on the tokens neither dispatch dropped a lane of. The bound is
+    MOE_EP_STEPS bf16 steps of the largest |y|. The planted fault routes
+    the most chosen expert's bucket to the next shard, whose own expert
+    then computes it: both dispatches must exceed the bound. The three
+    dispatches' whole FFN (the shared expert included) is timed, ms a
+    layer. Returns the report."""
+    from repro_torch.core.routing import ShardMesh
+    from repro_torch.models import blocks, moe
+    from repro_torch.parallel.sharding import use_mesh
+    x = ffn_input(torch, cfg, params, prompt)
+    ffn = params.blocks[0].ffn
+    out = moe_dispatches(torch, cfg, ffn, x)
+    dense, dense_drop = out["dense"]
+    bound = bf16_bound(torch, dense, MOE_EP_STEPS)
+    report = {"tokens": x.shape[0], "bound": bound,
+              "drops": {k: int(v[1].sum()) for k, v in out.items()}}
+    psum, psum_drop = out["replicated_psum"]
+    check(torch.equal(psum_drop, dense_drop), f"{label}: replicated_psum "
+          f"dropped other lanes than the dense dispatch")
+    a2a, a2a_drop = out["routed_a2a"]
+    kept = (dense_drop == 0) & (a2a_drop == 0)
+    check(bool(kept.any()), f"{label}: every token lost a lane")
+    diff = {"replicated_psum": float((psum - dense).float().abs().max()),
+            "routed_a2a": float((a2a - dense)[kept].float().abs().max())}
+    report.update(diff=diff, kept=int(kept.sum()))
+    for name, v in diff.items():
+        check(v <= bound, f"{label}: {name} differs from the dense dispatch "
+              f"by {v} > {bound}")
+    # the planted fault
+    _, idx, _ = moe.router_probs(ffn, cfg, x)
+    hot = int(torch.bincount(idx.reshape(-1).long()).argmax())
+    owner = moe._owner_of
+    tp = MOE_MESH[1][1]
+
+    def misrouted(dest, el):
+        o = owner(dest, el)
+        return torch.where(dest == hot, (o + 1) % tp, o)
+    moe._owner_of = misrouted
+    try:
+        bad = moe_dispatches(torch, cfg, ffn, x)
+    finally:
+        moe._owner_of = owner
+    report["fault"] = {
+        "replicated_psum": float((bad["replicated_psum"][0] - dense)
+                                 .float().abs().max()),
+        "routed_a2a": float((bad["routed_a2a"][0] - dense)[kept]
+                            .float().abs().max())}
+    for name, v in report["fault"].items():
+        check(v > bound, f"{label}: the planted fault (expert {hot}'s bucket "
+              f"on the wrong shard) stays within the bound in {name}")
+    # ms a layer of each dispatch's whole FFN, and of the dense one at
+    # the decode batch (the paged decode's FFN: B tokens of one step)
+    mesh = ShardMesh(*MOE_MESH)
+    x3 = x[None]
+    dense_cfg = cfg.replace(moe_impl="dense")
+    report["ms"] = {"dense": median_ms(torch, lambda: blocks._ffn_apply(
+        ffn, dense_cfg, x3), 5)}
+    report["decode_ms"] = median_ms(torch, lambda: blocks._ffn_apply(
+        ffn, dense_cfg, x[:MOE_BATCH, None]), 5)
+    with use_mesh(mesh):
+        for impl in ("replicated_psum", "routed_a2a"):
+            c = cfg.replace(moe_impl=impl)
+            report["ms"][impl] = median_ms(
+                torch, lambda: blocks._ffn_apply(ffn, c, x3), 5)
+    return report
+
+
+def moe_kernel_row(torch, arch, seed, launches):
+    """paged_attention at the arch's served decode shape (16 requests,
+    its heads, D 128, pages of 16, a 1,024-page pool) in bf16, within the
+    bf16 elementwise limit of the plain version, timed beside SDPA and the
+    bound (`paged_attention_timing`). Returns the kernel line's row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cfg = get_config(arch)
+    rng = np.random.default_rng(seed + 8)
+    q, kp, vp, tables, lengths = paged_attention_inputs(
+        torch, rng, torch.bfloat16, arch, MOE_BATCH, MOE_NUM_PAGES)
+    out = paged_attention(q, kp, vp, tables, lengths).float()
+    torch.cuda.synchronize()
+    ref = paged_attention_ref(q, kp, vp, tables, lengths)
+    err = (out - ref).abs()
+    worst = float((err / paged_limit(ref)).max())
+    check(worst <= 1.0, f"paged_attention at {arch}'s decode shape: "
+          f"{worst:.3f} of the bf16 limit")
+    r = paged_attention_timing(torch, q, kp, vp, tables, lengths, ref,
+                               float(err.max()))
+    g = cfg.n_heads // cfg.n_kv_heads
+    shape = (f"{arch} decode: B {MOE_BATCH}, H {cfg.n_heads}, Hkv "
+             f"{cfg.n_kv_heads}, G {g}, D {cfg.resolved_head_dim}, page "
+             f"{SERVE_PAGE}, {MOE_NUM_PAGES} pages")
+    print(f"kernel paged_attention at {shape}: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, dispatch "
+          f"{r['dispatch_ms']:.4f}, bound {r['bound'][0]:.4f} by "
+          f"{r['bound'][1]}); at most {worst:.3f} of the bf16 limit",
+          flush=True)
+    del q, kp, vp, ref, out
+    torch.cuda.empty_cache()
+    source, replaces = next((s, r) for n, s, r in KERNELS
+                            if n == "paged_attention")
+    return {"name": "paged_attention", "shape": shape, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r["library_ms"]}
+
+
+def moe_serve(torch, arch, seed: int):
+    """One MoE arch at full width and MOE_LAYERS layers behind `Engine` in
+    exec mode gpu: the served run (launch counts set to 0 just before and
+    read just after), check (b) on its first MOE_B_STEPS decode steps,
+    the paper's routing at full width (`moe_ep_check`), check (a) in f32
+    on MOE_A_PROMPTS prompts x MOE_A_NEW tokens, then the paged_attention
+    row at the arch's decode shape. Returns (launches, report, row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import traffic
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import obs
+    label = f"moe {arch}"
+    cfg = get_config(arch).replace(n_layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    trace = traffic.make_trace(seed, **MOE_TRACE)
+    engine = Engine(cfg, params, max_reqs=MOE_BATCH,
+                    num_pages=MOE_NUM_PAGES, page_size=SERVE_PAGE,
+                    max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV)
+    torch.cuda.synchronize()
+    plens = [len(r.prompt) for r in trace]
+    print(f"{label} on {card_line()}: {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers at full width, {n_params} parameters (f32 + a bf16 copy: "
+          f"{6 * n_params / 1e9:.2f} GB), {cfg.n_experts} experts top-"
+          f"{cfg.n_experts_active}, moe_impl {cfg.moe_impl}; trace of "
+          f"{len(trace)} requests, prompts {min(plens)}..{max(plens)} "
+          f"tokens; set-up {time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    b_report = dict(steps=0, diff=[], tol=[], bad=0, argmax_checked=0,
+                    argmax_flips=0, faults={}, steps_of_diff=[])
+    serve_decode_checked(torch, engine, MOE_B_STEPS, b_report)
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    with obs.tracing() as tr:
+        outs = traffic.replay(engine, trace, max_steps=SERVE_MAX_TICKS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    harvest_shapes(cuda)
+    print(f"{label}: replay {wall:.3f} s, {engine.steps} decode steps, "
+          f"launches {json.dumps(launches)}", flush=True)
+    m = check_served(torch, label, engine, trace, outs, launches,
+                     MOE_NUM_PAGES)
+    report_check_b(label, b_report, MOE_B_STEPS)
+    report = served_times(tr, m, engine, MOE_B_STEPS)
+    report.update(replay_s=wall,
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                  weights_gb=6 * n_params / 1e9)
+    del engine
+    torch.cuda.empty_cache()
+    print(f"{label} decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{report['decode_ms_per_step']:.3f} ms/step over decode steps "
+          f"{MOE_B_STEPS + 1}..{report['decode_steps']}; prefill: "
+          f"{report['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({report['prefill_tokens']} tokens in {report['prefills']} "
+          f"prefills); batch fill {report['batch_fill']:.4f}; prefix hit "
+          f"rate {report['prefix_hit_rate']:.4f}; peak "
+          f"{report['peak_gib']:.2f} GiB allocated beside "
+          f"{report['weights_gb']:.2f} GB of weights", flush=True)
+
+    ep = moe_ep_check(torch, label, cfg, params, trace[0].prompt)
+    report["ep"] = ep
+    print(f"{label} routing at full width: layer 0's FFN input of the first "
+          f"prefill ({ep['tokens']} tokens) on a {MOE_MESH[1]} "
+          f"{MOE_MESH[0]} mesh; dropped lanes {json.dumps(ep['drops'])} "
+          f"(capacity factor {cfg.moe_capacity_factor}); max |y - dense| "
+          f"{json.dumps(ep['diff'])} (routed_a2a over the {ep['kept']} "
+          f"tokens neither dropped a lane of), bound {ep['bound']:.4g}; "
+          f"planted fault {json.dumps(ep['fault'])}; FFN ms a layer "
+          f"{json.dumps(ep['ms'])}, and {ep['decode_ms']:.4f} for the dense "
+          f"dispatch at the decode batch of {MOE_BATCH} tokens", flush=True)
+
+    t0 = time.perf_counter()
+    checked, low, ties = serve_reference_check(
+        torch, cfg, params, trace, MOE_A_PROMPTS, MOE_A_NEW, MOE_A_PAGES)
+    print(f"{label} check (a): f32, {checked} engine tokens equal the "
+          f"contiguous reference's argmax; {low} steps had a top-2 margin "
+          f"below {SERVE_A_MARGIN} and {ties} steps were at or after a "
+          f"router near tie, and were not compared "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    check(checked - low - ties >= checked // 2, f"{label} check (a): "
+          f"fewer than half the tokens compared")
+    report.update(a_checked=checked, a_low=low, a_ties=ties)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = moe_kernel_row(torch, arch, seed,
+                         launches.get("paged_attention", 0))
+    return launches, report, row
+
+
+def moe_phase(torch, seed: int):
+    """Phase 8: each of MOE_ARCHS in turn (`moe_serve`), the card freed
+    between them. Returns (launches summed, the paged_attention rows)."""
+    launches, rows = collections.Counter(), []
+    for arch in MOE_ARCHS:
+        more, _, row = moe_serve(torch, arch, seed)
+        launches.update(more)
+        rows.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(launches), rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4781,11 +5275,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     done = phase("1 device and build")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    check(smi.returncode == 0, "nvidia-smi")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card_line(), flush=True)
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}",
           flush=True)
@@ -4816,11 +5306,15 @@ def main() -> int:
                          pq_final)
     done()
 
+    moe_rows = []
     for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase),
                       ("6 sharded store", sharded_phase),
-                      ("7 train", train_phase)):
+                      ("7 train", train_phase),
+                      ("8 moe serving", moe_phase)):
         done = phase(name)
-        more, _ = run(torch, args.seed)
+        more, extra = run(torch, args.seed)
+        if run is moe_phase:
+            moe_rows = extra
         for k, v in more.items():
             launches[k] = launches.get(k, 0) + v
         # the serving engine's checked decode closes a reference cycle
@@ -4839,8 +5333,10 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    print("calls by shape over the main path, serving, hymba and the "
-          "sharded store: "
+    out.extend(moe_rows)
+    print(card_line(), flush=True)
+    print("calls by shape over the main path, serving, hymba, the "
+          "sharded store and the MoE serving: "
           + json.dumps(calls_by_shape(SHAPE_LAUNCHES)), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ ARCHS              -> the architectures the port runs so far
 """
 from importlib import import_module
 
-ARCHS = ["qwen3-1.7b", "hymba-1.5b"]
+ARCHS = ["qwen3-1.7b", "hymba-1.5b", "llama4-scout-17b-a16e",
+         "qwen3-moe-235b-a22b"]
 ALL = ARCHS + ["paper-kvstore"]
 
 _MOD = {n: n.replace("-", "_").replace(".", "_") for n in ALL}

@@ -2,9 +2,10 @@
 
 `ModelConfig` carries the fields of the reference's `ModelConfig` that the
 ported slices read, under the same names and with the same defaults (the
-GQA transformer family the serving engine drives, and hymba's hybrid
-attention + mamba block); `StoreConfig` carries the kvstore fields. The
-MLA, MoE and xLSTM fields wait for the slices that port those blocks.
+GQA transformer family the serving engine drives, its MoE variant, and
+hymba's hybrid attention + mamba block); `StoreConfig` carries the kvstore
+fields. The MLA and xLSTM fields wait for the slices that port those
+blocks.
 `ShapeConfig` and `SHAPES` are the reference's assigned input-shape
 cells.
 """
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | hybrid (the ported families)
+    family: str                      # dense | moe | hybrid (the ported families)
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -34,8 +35,16 @@ class ModelConfig:
     sliding_window: int = 0          # 0 = full attention (hymba: >0)
     global_attn_every: int = 0       # hymba: every k-th layer full attn
 
-    # --- block structure (other kinds raise in models.blocks) ---
+    # --- MoE ---
     n_experts: int = 0
+    n_experts_active: int = 0        # top-k
+    d_expert: int = 0                # expert FFN width
+    n_shared_experts: int = 0        # llama4 shared expert
+    norm_topk_prob: bool = True
+    moe_impl: str = "replicated_psum"   # or "routed_a2a" (the paper's routing)
+    moe_capacity_factor: float = 2.0    # dispatch-buffer budget
+
+    # --- block structure (other kinds raise in models.blocks) ---
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2

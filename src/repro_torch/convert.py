@@ -19,7 +19,7 @@ ints, keeping `LevelPlanes` views of one buffer.
 
 The serving slice adds `params_from_jax` (the reference's parameter
 pytree as numpy leaves, block leaves stacked `[n_groups, ...]`, into the
-port's `models.model.LM`; dense and hymba blocks), `caches_from_jax` /
+port's `models.model.LM`; dense, moe and hymba blocks), `caches_from_jax` /
 `caches_to_numpy` (the contiguous caches of `prefill` / `decode_step`)
 and `paged_kv_from_jax` / `paged_kv_to_numpy` (a `serving.kvcache.PagedKV`
 with its `BlockPool`). bfloat16 leaves
@@ -214,28 +214,36 @@ def _tensor(x, device) -> torch.Tensor:
 def params_from_jax(tree, cfg, device="cuda"):
     """The reference's parameters (`jax.tree.map(np.asarray, params)`) as
     the port's `LM`, one `Block` per layer, on `device`: the dense block's
-    leaves, and hymba's `mamba` group, `attn_ln` and `mamba_ln`."""
+    leaves, the moe block's `ffn` group (router [D, E], wi / wu [E, D, F],
+    wd [E, F, D] and the `shared` MLP), and hymba's `mamba` group,
+    `attn_ln` and `mamba_ln`."""
     from torch import nn
 
     from repro_torch.models.attention import GQA
     from repro_torch.models.blocks import Block
     from repro_torch.models.mlp import MLP
     from repro_torch.models.model import LM
+    from repro_torch.models.moe import MoE
     from repro_torch.models.ssm import Mamba
-    groups = {"attn": GQA, "ffn": MLP, "mamba": Mamba}
+    groups = {"attn": GQA, "ffn": MLP, "mamba": Mamba, "shared": MLP}
     dev = resolve_device(device)
     if len(tree["blocks"]) != 1:
         raise NotImplementedError("params_from_jax: one block kind per "
-                                  "period (the dense transformer, hymba)")
+                                  "period (the dense transformer, moe, "
+                                  "hymba)")
     stacked = tree["blocks"][0]
 
     def leaf(v, i):
         return _tensor(np.asarray(v)[i], dev)
 
+    def group(name, d, i):
+        cls = MoE if name == "ffn" and "router" in d else groups[name]
+        return cls(**{k: group(k, v, i) if isinstance(v, dict) else leaf(v, i)
+                      for k, v in d.items()})
+
     def block(i):
-        return Block(**{name: (groups[name](**{k: leaf(v, i)
-                                               for k, v in d.items()})
-                               if isinstance(d, dict) else leaf(d, i))
+        return Block(**{name: (group(name, d, i) if isinstance(d, dict)
+                               else leaf(d, i))
                         for name, d in stacked.items()})
 
     blocks = nn.ModuleList(block(i) for i in range(cfg.n_layers))

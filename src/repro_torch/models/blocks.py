@@ -1,27 +1,42 @@
-"""Decoder blocks (counterpart of `repro.models.blocks`): the `dense` kind
-and hymba's `hymba` kind (GQA attention and a mamba head side by side on
-the same normed input, each output normed, averaged into the residual,
-then the MLP). The reference's moe, mlstm and slstm kinds raise
+"""Decoder blocks (counterpart of `repro.models.blocks`): the `dense` kind,
+the `moe` kind (the dense block with a mixture-of-experts FFN) and
+hymba's `hymba` kind (GQA attention and a mamba head side by side on the
+same normed input, each output normed, averaged into the residual, then
+the MLP). The reference's mlstm and slstm kinds raise
 `NotImplementedError` until their slices are ported.
 
-Caches per layer: dense {"k", "v"}; hymba {"k", "v", "conv", "ssm"}."""
+The MoE FFN dispatches by the mesh context (`parallel.sharding`): with no
+mesh open, or `moe_impl="dense"`, the one-shard dense dispatch; under
+`use_mesh`, the expert-parallel dispatch `cfg.moe_impl` names. Either way
+the shared expert is added exactly once. The reference adds it twice on
+one device under an expert-parallel `moe_impl` (its `_ffn_apply` adds it
+to the dense fallback's output, which holds it already), and once on
+every other path: the port follows those (ROADMAP.md §3).
+
+Caches per layer: dense and moe {"k", "v"}; hymba {"k", "v", "conv",
+"ssm"}."""
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.common import dtype_of, rms_norm
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.params import Weights
+from repro_torch.parallel.sharding import current_mesh, mesh_cfg
 
 
 class Block(Weights):
-    """ln1 -> attn -> ln2 -> ffn, the reference's dense block dict (hymba
-    adds mamba, attn_ln and mamba_ln)."""
+    """ln1 -> attn -> ln2 -> ffn, the reference's dense block dict (the
+    moe kind's ffn is a `moe.MoE`; hymba adds mamba, attn_ln and
+    mamba_ln)."""
 
 
-PORTED_KINDS = ("dense", "hymba")
+PORTED_KINDS = ("dense", "moe", "hymba")
 
 
 def _check_kind(kind: str) -> None:
@@ -65,12 +80,61 @@ def init_block(gen: torch.Generator, cfg, kind: str) -> Block:
     p = dict(ln1=torch.ones(cfg.d_model, **ones),
              attn=att.init_gqa(gen, cfg),
              ln2=torch.ones(cfg.d_model, **ones),
-             ffn=init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype))
+             ffn=(moe_mod.init_moe(gen, cfg) if kind == "moe" else
+                  init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)))
     if kind == "hymba":
         p.update(mamba=ssm.init_mamba(gen, cfg),
                  attn_ln=torch.ones(cfg.d_model, **ones),
                  mamba_ln=torch.ones(cfg.d_model, **ones))
     return Block(**p)
+
+
+def _ffn_apply(p, cfg, x):
+    """MLP or MoE on [B, S, D]; returns (y, aux)."""
+    if not isinstance(p, moe_mod.MoE):
+        return mlp(p, x, cfg.compute_dtype), 0.0
+    b, s, d = x.shape
+    x2 = x.reshape(b * s, d)
+    if cfg.moe_impl == "dense" or current_mesh() is None:
+        y2, aux = moe_mod.moe_dense_ffn(p, cfg, x2)
+    else:
+        y2, aux = _moe_sharded(p, cfg, x2, cfg.moe_impl)
+        if cfg.n_shared_experts:
+            y2 = y2 + mlp(p.shared, x2, cfg.compute_dtype)
+    return y2.reshape(b, s, d).to(x.dtype), aux
+
+
+def _moe_sharded(p, cfg, x2d, impl: str):
+    """The expert-parallel dispatch `impl` over the open mesh's model axis
+    (the reference's manual region over the data axes and the model axis),
+    the shared expert not added; with no mesh open, the dense dispatch
+    (the shared expert added). Tokens split over the data axes
+    ("replicated_psum") or over the data axes and then the model axis
+    ("routed_a2a"), row-major, as the reference's token specs split them.
+    aux is the mean of the shards' losses. Returns (y2d, aux)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return moe_mod.moe_dense_ffn(p, cfg, x2d)
+    mc = mesh_cfg()
+    tp = mesh.shape[mc["tp_axis"]]
+    dp = math.prod(mesh.shape[a] for a in mc["dp_axes"])
+    t, d = x2d.shape
+    if cfg.n_experts % tp:
+        raise ValueError(f"{cfg.n_experts} experts over a model axis of {tp}")
+    if impl == "routed_a2a":
+        if t % (dp * tp):
+            raise ValueError(f"{t} tokens over {dp} x {tp} shards")
+        y, aux = moe_mod.moe_routed_a2a(p, cfg,
+                                        x2d.reshape(dp, tp, t // (dp * tp), d))
+        return y.reshape(t, d), aux.mean()
+    if impl != "replicated_psum":
+        raise ValueError(f"moe_impl {impl!r}: 'dense', 'replicated_psum' or "
+                         f"'routed_a2a'")
+    if t % dp:
+        raise ValueError(f"{t} tokens over {dp} data shards")
+    x = x2d.reshape(dp, 1, t // dp, d).expand(dp, tp, t // dp, d)
+    y, aux = moe_mod.moe_replicated_psum(p, cfg, x)
+    return y[:, 0].reshape(t, d), aux.mean()
 
 
 def _mix(p: Block, cfg, x, a, m):
@@ -82,6 +146,12 @@ def _mix(p: Block, cfg, x, a, m):
     return x + mlp(p.ffn, h2, cfg.compute_dtype)
 
 
+def _ffn_residual(p: Block, cfg, x):
+    """x + ffn(norm(x)) and the FFN's aux."""
+    f, aux = _ffn_apply(p.ffn, cfg, rms_norm(x, p.ln2, cfg.norm_eps))
+    return x + f, aux
+
+
 def block_forward(p: Block, cfg, kind, x, positions, window):
     """x: [B,S,D] -> (x', aux)."""
     _check_kind(kind)
@@ -91,14 +161,13 @@ def block_forward(p: Block, cfg, kind, x, positions, window):
         m, _ = ssm.mamba_forward(p.mamba, cfg, h)
         return _mix(p, cfg, x, a, m), 0.0
     x = x + att.gqa_forward(p.attn, cfg, h, positions, window)
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp(p.ffn, h2, cfg.compute_dtype), 0.0
+    return _ffn_residual(p, cfg, x)
 
 
 def block_prefill(p: Block, cfg, kind, x, positions, cache_len, window,
                   past=None):
     """Returns (x', cache, aux). `past`: roped prefix KV (prefix-cache
-    reuse skips recomputing the shared pages; dense only)."""
+    reuse skips recomputing the shared pages; dense and moe)."""
     _check_kind(kind)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "hymba":
@@ -111,13 +180,14 @@ def block_prefill(p: Block, cfg, kind, x, positions, cache_len, window,
         return _mix(p, cfg, x, a, m), {**kv, **st}, 0.0
     a, cache = att.gqa_prefill(p.attn, cfg, h, positions, cache_len, window,
                                past=past)
-    x = x + a
-    h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp(p.ffn, h2, cfg.compute_dtype), cache, 0.0
+    x, aux = _ffn_residual(p, cfg, x + a)
+    return x, cache, aux
 
 
 def block_decode(p: Block, cfg, kind, x, pos, cache, window):
-    """x: [B,1,D]; returns (x', cache')."""
+    """x: [B,1,D]; returns (x', cache', aux). The moe kind runs the dense
+    dispatch over the B tokens whatever the mesh, as the reference's
+    decode does."""
     _check_kind(kind)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "hymba":
@@ -125,8 +195,12 @@ def block_decode(p: Block, cfg, kind, x, pos, cache, window):
                                {"k": cache["k"], "v": cache["v"]}, window)
         m, st = ssm.mamba_decode(p.mamba, cfg, h, {"conv": cache["conv"],
                                                    "ssm": cache["ssm"]})
-        return _mix(p, cfg, x, a, m), {**kv, **st}
+        return _mix(p, cfg, x, a, m), {**kv, **st}, 0.0
     a, cache = att.gqa_decode(p.attn, cfg, h, pos, cache, window)
     x = x + a
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-    return x + mlp(p.ffn, h2, cfg.compute_dtype), cache
+    if kind == "moe":
+        b, _, d = h2.shape
+        f, aux = moe_mod.moe_dense_ffn(p.ffn, cfg, h2.reshape(b, d))
+        return x + f.reshape(b, 1, d).to(x.dtype), cache, aux
+    return x + mlp(p.ffn, h2, cfg.compute_dtype), cache, 0.0

@@ -1,6 +1,6 @@
 """LM assembly: embeddings -> blocks -> head (counterpart of
 `repro.models.model` for the single-kind families: the dense GQA
-transformer and hymba).
+transformer, its MoE variant and hymba).
 
 The reference scans over stacked layer groups; here the layers are an
 `nn.ModuleList` walked by a Python loop, and the caches come back stacked
@@ -84,54 +84,65 @@ def _stack(caches: list[dict]) -> tuple:
 
 
 def forward(p: LM, cfg, tokens, positions=None):
-    """Returns (logits, aux); aux is 0 (no MoE load-balance loss)."""
+    """Returns (logits, aux); aux is the blocks' summed MoE load-balance
+    loss (0 without experts)."""
     x = _embed(p, cfg, tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
     kind = block_kinds(cfg)[0]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), device=x.device)
     for bp, win in zip(p.blocks, layer_windows(cfg)):
         if remat:
-            x, _ = checkpoint(block_forward, bp, cfg, kind, x, positions,
+            x, a = checkpoint(block_forward, bp, cfg, kind, x, positions,
                               win, use_reentrant=False)
         else:
-            x, _ = block_forward(bp, cfg, kind, x, positions, win)
+            x, a = block_forward(bp, cfg, kind, x, positions, win)
+        aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), torch.zeros((), device=x.device)
+    return _head(p, cfg, x), aux
 
 
 def prefill(p: LM, cfg, tokens, cache_len: int, positions=None):
-    """Returns (logits, caches, aux)."""
+    """Returns (logits, caches, aux), aux summed over the blocks as
+    `forward`'s (the reference's prefill returns 0)."""
     x = _embed(p, cfg, tokens)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
     kind = block_kinds(cfg)[0]
     caches = []
+    aux = torch.zeros((), device=x.device)
     for bp, win in zip(p.blocks, layer_windows(cfg)):
-        x, c, _ = block_prefill(bp, cfg, kind, x, positions, cache_len, win)
+        x, c, a = block_prefill(bp, cfg, kind, x, positions, cache_len, win)
         caches.append(c)
+        aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), _stack(caches), torch.zeros((), device=x.device)
+    return _head(p, cfg, x), _stack(caches), aux
 
 
 def prefill_with_past(p: LM, cfg, tokens, past_k, past_v, cache_len: int):
     """Suffix prefill against cached prefix KV (prefix-cache reuse).
     past_k/v: [L, B, S_past, Hkv, Dh] roped. Returns (logits, caches, aux)
-    with caches covering past+suffix."""
-    if block_kinds(cfg) != ["dense"]:
+    with caches covering past+suffix. The moe kind too, which the
+    reference's refuses: its FFN sees only the suffix's tokens, so where
+    the full prompt's dispatch would drop lanes the two can differ."""
+    kind = block_kinds(cfg)[0]
+    if kind not in ("dense", "moe"):
         raise NotImplementedError("prefix reuse: GQA transformer families")
     x = _embed(p, cfg, tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, past_k.shape[2], x.device)
     caches = []
+    aux = torch.zeros((), device=x.device)
     for i, (bp, win) in enumerate(zip(p.blocks, layer_windows(cfg))):
-        x, c, _ = block_prefill(bp, cfg, "dense", x, positions, cache_len,
+        x, c, a = block_prefill(bp, cfg, kind, x, positions, cache_len,
                                 win, past={"k": past_k[i], "v": past_v[i]})
         caches.append(c)
+        aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), _stack(caches), torch.zeros((), device=x.device)
+    return _head(p, cfg, x), _stack(caches), aux
 
 
 def decode_step(p: LM, cfg, token, pos, caches):
@@ -141,7 +152,7 @@ def decode_step(p: LM, cfg, token, pos, caches):
     kind = block_kinds(cfg)[0]
     new = []
     for i, (bp, win) in enumerate(zip(p.blocks, layer_windows(cfg))):
-        x, c = block_decode(bp, cfg, kind, x, pos,
+        x, c, _ = block_decode(bp, cfg, kind, x, pos,
                             {name: t[i] for name, t in caches[0].items()},
                             win)
         new.append(c)

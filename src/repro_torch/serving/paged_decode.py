@@ -1,10 +1,11 @@
 """Decode step reading and writing KV through the paged block pool
 (counterpart of `repro.serving.paged_decode`), for the GQA transformer
-family.
+family and its MoE variant.
 
 Per layer: project q/k/v for the new token, write its K/V into its page
 (before attending: the token attends to itself), paged attention over the
-pool pages, then the MLP. The exec mode (`repro_torch.exec`) picks the
+pool pages, then the MLP (an MoE block's FFN: the dense dispatch over
+the batch's tokens, as the reference's). The exec mode (`repro_torch.exec`) picks the
 attention: `gpu` (the default) launches the `paged_attention` CUDA kernel
 and refuses CPU tensors; `torch` runs the plain version, as the
 reference's `use_kernel=False` runs its jnp oracle. The pools are written
@@ -19,6 +20,7 @@ from repro_torch.kernels.paged_attention.ops import paged_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.models.common import apply_rope, rms_norm
 from repro_torch.models.mlp import mlp
+from repro_torch.models.moe import MoE, moe_dense_ffn
 from repro_torch.models.model import _head
 from repro_torch.serving.kvcache import PagedKV, decode_write_lanes
 from repro_torch import exec as exec_
@@ -70,7 +72,11 @@ def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
         o = attend(q, k_pool, v_pool, tables, lengths)
         x = x + o.reshape(b, 1, h * dh).to(x.dtype) @ p.w("wo", ct)
         h2 = rms_norm(x, bp.ln2, cfg.norm_eps)
-        x = x + mlp(bp.ffn, h2, ct)
+        if isinstance(bp.ffn, MoE):
+            f, _ = moe_dense_ffn(bp.ffn, cfg, h2.reshape(b, -1))
+            x = x + f.reshape(b, 1, -1).to(x.dtype)
+        else:
+            x = x + mlp(bp.ffn, h2, ct)
 
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return _head(params, cfg, x[:, 0]), kv

@@ -254,7 +254,10 @@ def test_unported_kinds_raise():
     cfg = get_reduced(ARCH)
     assert block_kinds(cfg) == ["dense"]
     assert block_kinds(cfg.replace(n_experts=4)) == ["moe"]
-    with pytest.raises(NotImplementedError, match="moe"):
-        init_block(torch.Generator(), cfg, "moe")
+    assert block_kinds(cfg.replace(block_pattern="xlstm")) == [
+        "mlstm"] * 7 + ["slstm"]
+    for kind in ("mlstm", "slstm"):
+        with pytest.raises(NotImplementedError, match=kind):
+            init_block(torch.Generator(), cfg, kind)
     with pytest.raises(NotImplementedError, match="attn_type"):
         init_block(torch.Generator(), cfg.replace(attn_type="mla"), "dense")
