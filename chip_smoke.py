@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
-hymba-1.5b's prefill and decode, the sharded store, training, and the
-MoE family's serving) on one GPU and check it.
+hymba-1.5b's prefill and decode, the sharded store, training, the MoE
+family's serving, and xlstm-1.3b's and minicpm3-4b's prefill and decode)
+on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -168,7 +169,7 @@ is non-zero and no result line is printed):
 6. The sharded store (paper §VI): the production single-pod mesh (16, 16)
    ("data", "model") folded onto the card, `paper_kvstore`'s 65,536 keys
    and 4,096 lanes a shard (2^20 lanes a step), pool factor 2, through
-   `store.engine.StoreEngine`: 12 preload steps of fresh inserts in exec
+   `store.engine.StoreEngine`: 9 preload steps of fresh inserts in exec
    mode gpu, then one Workload 1 and one Workload 2 step in modes gpu
    and torch (the torch engine from the gpu state after the preload:
    the per-shard loop is host-bound, so this keeps the script inside its
@@ -234,7 +235,32 @@ is non-zero and no result line is printed):
    and the peak GiB beside the weights; then paged_attention at each
    arch's decode shape (G 5 with 8 KV heads, G 16 with 4, D 128) in
    bf16 against its plain version, timed beside SDPA and its bound.
-9. The calls by shape of the store kernels over phases 3-6 and 8, a
+9. xLSTM: xlstm-1.3b at full width and depth (48 layers, 42 mLSTM + 6
+   sLSTM blocks, 3.707 B seeded f32 parameters and a bf16 copy, counted
+   against a reckoning from the reference's shapes), exec mode gpu: 8
+   prompts of 4,096 tokens (`prefill_32k` cut to 8 sequences) prefilled
+   at cache_len 4,128, then 32 greedy decode steps; launch counts set to
+   0 just before and required to stay 0 (no kernel is on the path);
+   finite logits, tokens inside the vocabulary, every cache leaf's shape
+   and dtype as `init_caches` gives them, the decode state's bytes a
+   sequence equal to their reckoning. Check (a): f32 at full width and
+   one period of 8 layers, the same weights on the card and on the CPU,
+   2 prompts x 512 tokens then 4 teacher-forced decode steps: logits and
+   every cache leaf within a limit each (XLSTM_A_TOL) of max |CPU|;
+   the planted fault (the mLSTM (C, n, m) zeroed before decode) must break
+   the logits limit at every step. Check (b): f32 on the card at full
+   depth, 2 prompts x 1,024 tokens and 8 greedy decode steps, each step's
+   logits within XLSTM_B_TOL of a teacher-forced `forward` over prompt +
+   generated tokens; the planted fault (the sLSTM state reset before
+   decode) must exceed it at every step. Prints prefill and decode
+   tokens/s, ms a step, peak GiB beside the weights and the state bytes.
+10. MLA: minicpm3-4b the same way at full width and depth (62 layers,
+   4.262 B parameters); check (a) at 2 layers on 2 prompts x 1,024 tokens
+   (so MLA's 512-query chunk loop runs), its planted fault the cached
+   rope keys roped one position late; check (b)'s bound allows for the
+   bf16 latent cache, its planted fault the latent cache one position
+   late.
+11. The calls by shape of the store kernels over phases 3-6 and 8, a
    `kernels` JSON line (with phase 8's two paged_attention rows, each
    with its `shape`), then the last line
    `{"ok": true, "device": {...}}`.
@@ -406,19 +432,22 @@ HYMBA_A_CACHE_TOL = {"k": 2e-2, "v": 2e-2, "conv": 5e-3, "ssm": 5e-3}
 # phase 6, the sharded store: the production single-pod mesh
 # (`launch/mesh.py`: (16, 16) ("data", "model")) folded onto one card, a
 # `paper_kvstore` store of 65,536 keys and 4,096 lanes a shard, pool
-# factor 2; 12 preload steps of 2^20 fresh inserts (0.75 * 2^24 keys), then
+# factor 2; 9 preload steps of 2^20 fresh inserts (0.5625 * 2^24 keys,
+# 36,864 a shard: the tier cell's 32,768 still spill), then
 # SHARD_WL_STEPS steps of Workload 1 and of Workload 2 at 2^20 lanes. The
-# per-shard loop is host-bound: 2.2-3.9 s a step over det_skiplist and
-# 10-19 s over tiered3/lru in mode gpu, 2.6-4.7 and 12-23 s in mode torch,
-# on the H100 machines' hosts (PERF.md §6). So the preload runs in mode
-# gpu only, the torch engine starts from its end state, and one step of
-# each workload runs (not 4): the script stays inside its time limit
+# per-shard loop is host-bound: 2.2-4.5 s a step over det_skiplist and
+# 10-20 s over tiered3/lru in mode gpu, 2.6-4.7 and 12-23 s in mode torch,
+# on the H100 machines' hosts (PERF.md §6); this phase took 350-547 s
+# with 12 preload steps. So the preload runs in mode gpu only, its depth
+# is cut from 12 steps to 9, the torch engine starts from its end state,
+# and one step of each workload runs (not 4): the script stays inside
+# its time limit on the slower hosts
 SHARD_AXES = ("data", "model")
 SHARD_SIZES = (16, 16)
 SHARD_CAP = 65536
 SHARD_LANES = 4096
 SHARD_POOL_FACTOR = 2
-SHARD_PRELOAD_STEPS = 12
+SHARD_PRELOAD_STEPS = 9
 SHARD_WL_STEPS = 1
 SHARD_TIER_CAP = 32768      # tiered3/lru a shard, half: the preload spills
 # the tier cell runs observed: its workload steps are the fault-free run
@@ -5258,6 +5287,466 @@ def moe_phase(torch, seed: int):
     return dict(launches), rows
 
 
+# ---------------------------------------------------------------------------
+# phases 9-10: xlstm-1.3b's and minicpm3-4b's prefill and decode at full
+# width and depth
+# ---------------------------------------------------------------------------
+
+# The served run: `prefill_32k` cut to 8 sequences of 4,096 seeded tokens
+# (as phase 5's), cache_len 4,128, then 32 greedy decode steps, exec mode
+# gpu. Neither arch reaches a kernel of the port (the reference runs the
+# mLSTM / sLSTM scans and MLA's attention as plain ops), so the launch
+# counts must stay 0
+LM_BATCH = 8
+LM_PROMPT = 4096
+LM_NEW = 32
+# check (a): f32 at full width and cut depth (xlstm one period of 8
+# layers, minicpm3 2), the card against the CPU on 2 prompts (512 tokens
+# for xlstm; 1,024 for minicpm3, so MLA's 512-query chunk loop runs), then
+# 4 teacher-forced decode steps; logits and every cache leaf within a
+# limit of max |CPU| each (the first readings with margin)
+LM_A_PROMPTS = 2
+LM_A_DECODE = 4
+# check (b): f32 on the card at full depth, 2 prompts x 1,024 tokens and 8
+# greedy decode steps, each step's logits against a teacher-forced
+# `forward` over prompt + generated tokens, within a bound of max
+# |forward| (MLA's allows for its bf16 latent cache)
+LM_B_PROMPTS = 2
+LM_B_PROMPT = 1024
+LM_B_STEPS = 8
+# The limits of checks (a) and (b) are the first readings on an NVIDIA
+# H100 80GB HBM3 at its 700 W limit, with margin: xlstm's
+# readings 6.1e-6..1.5e-5 in (a) and 8.5e-6..1.5e-5 in (b) (f32 sums in
+# another order); minicpm3's (a) 1.3e-3 (logits) and 2.9e-3 / 3.5e-3
+# (the bf16 ckv / kpe: a bf16 step is 2^-8 of an element, so two steps
+# of max |CPU|), its (b) 3.6e-3..4.2e-3 (the bf16 latent cache); the
+# planted faults read 0.47..0.69 and 0.17..1.3 (xlstm), 0.19..0.21 and
+# 0.031..0.14 (minicpm3)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_A_LAYERS = 8
+XLSTM_A_PROMPT = 512
+XLSTM_A_TOL = {"logits": 1e-4, "mlstm.conv": 1e-4, "mlstm.c": 1e-4,
+               "mlstm.n": 1e-4, "mlstm.m": 1e-4, "slstm.c": 1e-4,
+               "slstm.n": 1e-4, "slstm.h": 1e-4, "slstm.m": 1e-4}
+XLSTM_B_TOL = 1e-4
+MLA_ARCH = "minicpm3-4b"
+MLA_A_LAYERS = 2
+MLA_A_PROMPT = 1024
+MLA_A_TOL = {"logits": 5e-3, "dense.ckv": 2 ** -7, "dense.kpe": 2 ** -7}
+MLA_B_TOL = 1e-2
+
+
+def reckon_params(cfg) -> int:
+    """The parameter count the reference's shapes give (`init_params`),
+    from the config alone."""
+    from repro_torch.models.blocks import block_kinds
+    d, h, di = cfg.d_model, cfg.n_heads, cfg.ssm_expand * cfg.d_model
+
+    def mlp(f):
+        return 3 * d * f
+
+    def layer(kind):
+        if kind == "mlstm":
+            return (d + 2 * d * di + cfg.ssm_conv * di + 3 * di * di
+                    + di * 2 * h + di + di * d)
+        if kind == "slstm":
+            return (2 * d + 2 * d * 4 * d + 4 * d + d * d
+                    + mlp(max(cfg.d_ff, 4 * d // 3)))
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        attn = (d * cfg.q_lora_rank + cfg.q_lora_rank
+                + cfg.q_lora_rank * h * qd + d * cfg.kv_lora_rank
+                + cfg.kv_lora_rank + cfg.kv_lora_rank * h * cfg.qk_nope_dim
+                + cfg.kv_lora_rank * h * cfg.v_head_dim
+                + d * cfg.qk_rope_dim + h * cfg.v_head_dim * d)
+        return 2 * d + attn + mlp(cfg.d_ff)
+    kinds = block_kinds(cfg)
+    blocks = sum(layer(k) for k in kinds) * (cfg.n_layers // len(kinds))
+    heads = 1 if cfg.tie_embeddings else 2
+    return blocks + heads * cfg.padded_vocab * d + d
+
+
+def reckon_state_bytes(cfg, cache_len: int) -> int:
+    """Decode state bytes a sequence: xLSTM's per-layer (conv, C, n, m) and
+    (c, n, h, m); MLA's (kv_lora_rank + qk_rope_dim) values a token a
+    layer in `kv_cache_dtype`."""
+    from repro_torch.models.blocks import block_kinds
+    from repro_torch.models.common import dtype_of
+    kinds = block_kinds(cfg)
+    ng = cfg.n_layers // len(kinds)
+    di = cfg.ssm_expand * cfg.d_model
+    dh = di // cfg.n_heads
+    ct = dtype_of(cfg.compute_dtype).itemsize
+    kt = dtype_of(cfg.kv_cache_dtype).itemsize
+    per = {"mlstm": (cfg.ssm_conv - 1) * di * ct
+           + 4 * cfg.n_heads * (dh * dh + dh + 1),
+           "slstm": 4 * 4 * cfg.d_model,
+           "dense": cache_len * (cfg.kv_lora_rank + cfg.qk_rope_dim) * kt}
+    return ng * sum(per[k] for k in kinds)
+
+
+def weights_to(torch, mod, device):
+    """A copy of a `Weights` tree on `device`: its parameters, no
+    load-time compute copies."""
+    from torch import nn
+    if isinstance(mod, nn.ModuleList):
+        return nn.ModuleList(weights_to(torch, m, device) for m in mod)
+    kw = {n: t.detach().to(device) for n, t in mod._parameters.items()}
+    kw.update({n: weights_to(torch, m, device)
+               for n, m in mod._modules.items()})
+    return type(mod)(**kw)
+
+
+def cut_depth(torch, params, n_layers: int):
+    """The first `n_layers` layers of `params` with its embeddings, head
+    and final norm, sharing their storage."""
+    from torch import nn
+    from repro_torch.models.model import LM
+    kw = {n: t for n, t in params._parameters.items()}
+    return LM(blocks=nn.ModuleList(list(params.blocks)[:n_layers]), **kw)
+
+
+def cache_leaves(cfg, caches):
+    """{"<kind>.<name>": [leaves over the period's dicts of that kind]}."""
+    from repro_torch.models.blocks import block_kinds
+    out = collections.defaultdict(list)
+    for kind, d in zip(block_kinds(cfg), caches):
+        for name, t in d.items():
+            out[f"{kind}.{name}"].append(t)
+    return out
+
+
+def rel_dist(torch, got, ref) -> float:
+    """max |got - ref| / max |ref| (ref's device)."""
+    got = got.to(ref.device).float()
+    ref = ref.float()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def lm_served(torch, label, cfg, params, toks):
+    """The served run in exec mode gpu: prefill `toks` at cache_len
+    prompt + LM_NEW, then LM_NEW greedy decode steps; the launch counts
+    set to 0 just before and read just after. Checks finite logits,
+    tokens inside the vocabulary and every cache leaf's shape and dtype
+    against `init_caches`'. Returns (report, launches)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    b, plen = toks.shape
+    cache_len = plen + LM_NEW
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    logits, caches, _ = M.prefill(params, cfg, toks, cache_len)
+    first = logits[:, -1, :cfg.vocab_size].clone()
+    del logits
+    tok = torch.argmax(first, -1)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    gen = [tok]
+    finite = bool(torch.isfinite(first).all())
+    t0 = time.perf_counter()
+    for i in range(LM_NEW):
+        pos = torch.full((b,), plen + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg, tok[:, None], pos, caches)
+        finite = finite and bool(torch.isfinite(lg[:, 0, :cfg.vocab_size])
+                                 .all())
+        tok = torch.argmax(lg[:, 0], -1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen = torch.stack(gen, 1)
+    print(f"{label}: prefill {b} x {plen} tokens {t_pre:.3f} s, {LM_NEW} "
+          f"decode steps {t_dec:.3f} s, launches {json.dumps(launches)}",
+          flush=True)
+    check(not launches, f"{label}: kernels launched on a path that "
+          f"reaches none: {launches}")
+    check(finite, f"{label}: finite logits")
+    check(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
+          f"{label}: tokens in the vocabulary")
+    want = M.init_caches(params, cfg, b, cache_len)
+    check(len(want) == len(caches), f"{label}: caches a period")
+    for w, c in zip(want, caches):
+        check(list(w) == list(c), f"{label}: cache names {list(c)}")
+        for name in w:
+            check(c[name].shape == w[name].shape
+                  and c[name].dtype == w[name].dtype,
+                  f"{label}: cache {name} {tuple(c[name].shape)} "
+                  f"{c[name].dtype}, init_caches gives "
+                  f"{tuple(w[name].shape)} {w[name].dtype}")
+    state = sum(t.numel() * t.element_size() for d in caches
+                for t in d.values())
+    del want, caches, lg
+    return dict(prefill_tokens_per_s=b * plen / t_pre, prefill_s=t_pre,
+                decode_tokens_per_s=b * LM_NEW / t_dec,
+                decode_ms_per_step=1e3 * t_dec / LM_NEW, peak_gib=peak,
+                state_bytes_per_seq=state / b,
+                reckoned_state_bytes=reckon_state_bytes(cfg, cache_len)), \
+        launches
+
+
+def lm_check_a(torch, label, cfg, params, n_layers, plen, tol, fault):
+    """Check (a), f32 at full width and `n_layers` layers, the card
+    against the CPU on the same weights and LM_A_PROMPTS seeded prompts of
+    `plen` tokens: prefill, then LM_A_DECODE teacher-forced decode steps.
+    The prefill's logits, each decode step's and every cache leaf (after
+    prefill and after the last step) within `tol` of max |CPU| each; the
+    planted `fault(caches)` (applied to the card's caches before decode)
+    must break the logits limit at every decode step. Returns (errors,
+    the fault's per step)."""
+    from repro_torch.models import model as M
+    cfg32 = cfg.replace(compute_dtype="float32", n_layers=n_layers)
+    card = cut_depth(torch, params, n_layers)
+    cpu = weights_to(torch, card, "cpu")
+    rng = np.random.default_rng(cfg.n_layers)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (LM_A_PROMPTS, plen + LM_A_DECODE)))
+    cache_len = plen + LM_A_DECODE
+    errs = collections.defaultdict(float)
+
+    def run(p, dev, planted=None):
+        t = toks.to(dev)
+        lg, caches, _ = M.prefill(p, cfg32, t[:, :plen], cache_len)
+        out = {"prefill": lg[..., :cfg.vocab_size],
+               "caches prefill": cache_leaves(cfg32, caches)}
+        if planted is not None:
+            caches = planted(caches)
+        for i in range(LM_A_DECODE):
+            pos = torch.full((LM_A_PROMPTS,), plen + i, device=dev)
+            lg, caches = M.decode_step(p, cfg32, t[:, plen + i:plen + i + 1],
+                                       pos, caches)
+            out[f"decode {i}"] = lg[:, 0, :cfg.vocab_size]
+        out["caches decode"] = cache_leaves(cfg32, caches)
+        return out
+
+    ref = run(cpu, "cpu")
+    got = run(card, DEV)
+    for key in ref:
+        if key.startswith("caches"):
+            for name, leaves in ref[key].items():
+                for r, g in zip(leaves, got[key][name]):
+                    check(g.shape == r.shape and g.dtype == r.dtype,
+                          f"{label} check (a): {key} {name} shape/dtype")
+                    errs[name] = max(errs[name], rel_dist(torch, g, r))
+        else:
+            errs["logits"] = max(errs["logits"],
+                                 rel_dist(torch, got[key], ref[key]))
+    del got
+    bad = run(card, DEV, fault)
+    fault_errs = [rel_dist(torch, bad[f"decode {i}"], ref[f"decode {i}"])
+                  for i in range(LM_A_DECODE)]
+    del bad, ref, cpu, card
+    for name, e in errs.items():
+        check(e <= tol[name], f"{label} check (a): {name} differs by "
+              f"{e:.3e} of max |CPU| > {tol[name]}")
+    check(min(fault_errs) > tol["logits"], f"{label} check (a): the "
+          f"planted fault stays within the logits limit {tol['logits']} "
+          f"at a decode step: {fault_errs}")
+    return dict(errs), fault_errs
+
+
+def lm_check_b(torch, label, cfg, params, bound, fault):
+    """Check (b), f32 on the card at full depth: prefill LM_B_PROMPTS
+    seeded prompts of LM_B_PROMPT tokens, LM_B_STEPS greedy decode steps,
+    then a teacher-forced `forward` over prompt + generated tokens; every
+    step's logits within `bound` of max |forward| at that position. The
+    decode steps again from `fault(caches after prefill)` on the same
+    tokens must exceed the bound at every step. Returns (per-step
+    errors, the fault's)."""
+    from repro_torch.models import model as M
+    cfg32 = cfg.replace(compute_dtype="float32")
+    rng = np.random.default_rng(cfg.n_layers + 1)
+    b, plen = LM_B_PROMPTS, LM_B_PROMPT
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (b, plen))).to(DEV)
+    cache_len = plen + LM_B_STEPS
+    lg, caches, _ = M.prefill(params, cfg32, toks, cache_len)
+    tok = torch.argmax(lg[:, -1, :cfg.vocab_size], -1)
+    del lg
+    start = caches
+    gen, steps = [], []
+    for i in range(LM_B_STEPS):
+        gen.append(tok)
+        pos = torch.full((b,), plen + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg32, tok[:, None], pos, caches)
+        steps.append(lg[:, 0, :cfg.vocab_size])
+        tok = torch.argmax(steps[-1], -1)
+    gen = torch.stack(gen, 1)
+    del caches
+    full, _ = M.forward(params, cfg32, torch.cat([toks, gen], 1))
+    ref = full[:, plen:, :cfg.vocab_size]
+    del full
+    errs = [rel_dist(torch, s, ref[:, i]) for i, s in enumerate(steps)]
+    caches = fault(start)
+    del start
+    fault_errs = []
+    for i in range(LM_B_STEPS):
+        pos = torch.full((b,), plen + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg32, gen[:, i:i + 1], pos,
+                                   caches)
+        fault_errs.append(rel_dist(torch, lg[:, 0, :cfg.vocab_size],
+                                   ref[:, i]))
+    del caches, ref
+    check(max(errs) <= bound, f"{label} check (b): decode differs from "
+          f"the teacher-forced forward by {max(errs):.3e} of max "
+          f"|forward| > {bound}")
+    check(min(fault_errs) > bound, f"{label} check (b): the planted fault "
+          f"stays within {bound} at a step: {fault_errs}")
+    return errs, fault_errs
+
+
+def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
+             b_bound, b_fault):
+    """One arch at full width and depth: seeded f32 parameters with a
+    bf16 copy drawn on the card, the served run (`lm_served`), then
+    checks (a) and (b) with their planted faults. Returns (launches,
+    report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    label = arch
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    params.load_compute_copy(cfg.compute_dtype)
+    n_params = sum(p.numel() for p in params.parameters())
+    reckoned = reckon_params(cfg)
+    rng = np.random.default_rng(seed + 24)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEV)
+    # warm-up: cuBLAS's first calls, outside the timing
+    M.decode_step(params, cfg, toks[:, :1],
+                  torch.full((LM_BATCH,), 64, device=DEV),
+                  M.prefill(params, cfg, toks[:, :64], 64 + 1)[1])
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     params.parameters()) / 1e9 + sum(
+        c.numel() * c.element_size() for m in params.modules()
+        for c in getattr(m, "_compute", {}).values()) / 1e9
+    print(f"{label} on {card_line()}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters (reckoned from the "
+          f"reference's shapes: {reckoned}, {reckoned / 1e9:.3f} B; f32 + "
+          f"a bf16 copy: {weights_gb:.2f} GB); set-up "
+          f"{time.perf_counter() - t0:.3f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
+          flush=True)
+    check(n_params == reckoned, f"{label}: {n_params} parameters, "
+          f"reckoned {reckoned}")
+
+    report, launches = lm_served(torch, label, cfg, params, toks)
+    del toks
+    report.update(weights_gb=weights_gb, params=n_params)
+    cache_len = LM_PROMPT + LM_NEW
+    state = report["state_bytes_per_seq"]
+    if reckon_state_bytes(cfg, 2 * cache_len) == reckon_state_bytes(
+            cfg, cache_len):
+        growth = "constant in the context"
+    else:
+        growth = (f"{state / cache_len:.0f} B a token, "
+                  f"{state / cache_len / cfg.n_layers:.0f} B a token a layer")
+    print(f"{label} prefill: {report['prefill_tokens_per_s']:.1f} tokens/s "
+          f"({LM_BATCH * LM_PROMPT} tokens in {report['prefill_s']:.3f} s); "
+          f"decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{report['decode_ms_per_step']:.3f} ms/step; peak "
+          f"{report['peak_gib']:.2f} GiB allocated beside {weights_gb:.2f} "
+          f"GB of weights; decode state {state:.0f} B ({state / 2**20:.1f} "
+          f"MiB) a sequence at cache_len {cache_len}, {growth} (reckoned "
+          f"{report['reckoned_state_bytes']})", flush=True)
+    check(report["state_bytes_per_seq"] == report["reckoned_state_bytes"],
+          f"{label}: decode state bytes differ from the reckoning")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    a_errs, a_fault_errs = lm_check_a(torch, label, cfg, params, a_layers,
+                                      a_prompt, a_tol, a_fault)
+    print(f"{label} check (a): f32, {a_layers} layers, {LM_A_PROMPTS} x "
+          f"{a_prompt} tokens + {LM_A_DECODE} decode steps, card vs CPU, "
+          f"max |card - CPU| / max |CPU|: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in a_errs.items()})
+          + f" (limits {json.dumps(a_tol)}); planted fault per decode step: "
+          + json.dumps([float(f"{v:.3e}") for v in a_fault_errs])
+          + f" ({time.perf_counter() - t0:.3f} s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    b_errs, b_fault_errs = lm_check_b(torch, label, cfg, params, b_bound,
+                                      b_fault)
+    print(f"{label} check (b): f32, full depth, {LM_B_PROMPTS} x "
+          f"{LM_B_PROMPT} tokens + {LM_B_STEPS} decode steps against the "
+          f"teacher-forced forward, max |decode - forward| / max |forward| "
+          f"per step: " + json.dumps([float(f"{v:.3e}") for v in b_errs])
+          + f" (bound {b_bound}); planted fault: "
+          + json.dumps([float(f"{v:.3e}") for v in b_fault_errs])
+          + f" ({time.perf_counter() - t0:.3f} s)", flush=True)
+    report.update(a=a_errs, a_fault=a_fault_errs, b=b_errs,
+                  b_fault=b_fault_errs)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+def zero_mlstm_memory(torch, cfg, caches):
+    """Planted fault: every mLSTM (C, n, m) state zeroed."""
+    from repro_torch.models.blocks import block_kinds
+    return tuple({k: torch.zeros_like(v) if kind == "mlstm" and k != "conv"
+                  else v for k, v in d.items()}
+                 for kind, d in zip(block_kinds(cfg), caches))
+
+
+def reset_slstm(torch, cfg, caches):
+    """Planted fault: every sLSTM state reset to zero."""
+    from repro_torch.models.blocks import block_kinds
+    return tuple({k: torch.zeros_like(v) for k, v in d.items()}
+                 if kind == "slstm" else d
+                 for kind, d in zip(block_kinds(cfg), caches))
+
+
+def kpe_one_late(torch, cfg, caches):
+    """Planted fault: the cached rope keys roped one position further."""
+    from repro_torch.models.common import apply_rope
+    (d,) = caches
+    kpe = d["kpe"]
+    one = torch.ones(kpe.shape[:-1], device=kpe.device)
+    late = apply_rope(kpe.float()[..., None, :], one, cfg.rope_theta)
+    return ({**d, "kpe": late[..., 0, :].to(kpe.dtype)},)
+
+
+def latent_one_late(torch, cfg, caches):
+    """Planted fault: the latent cache (ckv and kpe) one position late."""
+    (d,) = caches
+
+    def late(t):
+        out = torch.zeros_like(t)
+        out[:, :, 1:] = t[:, :, :-1]
+        return out
+    return ({k: late(v) for k, v in d.items()},)
+
+
+def xlstm_phase(torch, seed: int):
+    """Phase 9: xlstm-1.3b at full width and depth (48 layers, 42 mLSTM +
+    6 sLSTM blocks). Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(XLSTM_ARCH)
+    return lm_phase(torch, seed, XLSTM_ARCH, XLSTM_A_LAYERS, XLSTM_A_PROMPT,
+                    XLSTM_A_TOL,
+                    functools.partial(zero_mlstm_memory, torch,
+                                      cfg.replace(n_layers=XLSTM_A_LAYERS)),
+                    XLSTM_B_TOL, functools.partial(reset_slstm, torch, cfg))
+
+
+def mla_phase(torch, seed: int):
+    """Phase 10: minicpm3-4b at full width and depth (62 MLA layers).
+    Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MLA_ARCH)
+    return lm_phase(torch, seed, MLA_ARCH, MLA_A_LAYERS, MLA_A_PROMPT,
+                    MLA_A_TOL, functools.partial(kpe_one_late, torch, cfg),
+                    MLA_B_TOL, functools.partial(latent_one_late, torch, cfg))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5310,7 +5799,8 @@ def main() -> int:
     for name, run in (("4 serving", serving_phase), ("5 hymba", hymba_phase),
                       ("6 sharded store", sharded_phase),
                       ("7 train", train_phase),
-                      ("8 moe serving", moe_phase)):
+                      ("8 moe serving", moe_phase),
+                      ("9 xlstm", xlstm_phase), ("10 mla", mla_phase)):
         done = phase(name)
         more, extra = run(torch, args.seed)
         if run is moe_phase:

@@ -7,7 +7,7 @@ ARCHS              -> the architectures the port runs so far
 from importlib import import_module
 
 ARCHS = ["qwen3-1.7b", "hymba-1.5b", "llama4-scout-17b-a16e",
-         "qwen3-moe-235b-a22b"]
+         "qwen3-moe-235b-a22b", "xlstm-1.3b", "minicpm3-4b"]
 ALL = ARCHS + ["paper-kvstore"]
 
 _MOD = {n: n.replace("-", "_").replace(".", "_") for n in ALL}

@@ -2,10 +2,9 @@
 
 `ModelConfig` carries the fields of the reference's `ModelConfig` that the
 ported slices read, under the same names and with the same defaults (the
-GQA transformer family the serving engine drives, its MoE variant, and
-hymba's hybrid attention + mamba block); `StoreConfig` carries the kvstore
-fields. The MLA and xLSTM fields wait for the slices that port those
-blocks.
+GQA transformer family the serving engine drives, its MoE variant,
+minicpm3's MLA, hymba's hybrid attention + mamba block and xLSTM's
+mLSTM / sLSTM blocks); `StoreConfig` carries the kvstore fields.
 `ShapeConfig` and `SHAPES` are the reference's assigned input-shape
 cells.
 """
@@ -18,7 +17,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | hybrid (the ported families)
+    family: str                      # dense | moe | ssm | hybrid
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -28,12 +27,19 @@ class ModelConfig:
     head_dim: int = 0                # 0 -> d_model // n_heads
 
     # --- attention ---
-    attn_type: str = "gqa"           # gqa (mla waits)
+    attn_type: str = "gqa"           # gqa | mla
     qk_norm: bool = False            # qwen3
     qkv_bias: bool = False           # qwen1.5
     rope_theta: float = 1e4
     sliding_window: int = 0          # 0 = full attention (hymba: >0)
     global_attn_every: int = 0       # hymba: every k-th layer full attn
+
+    # --- MLA (minicpm3) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
 
     # --- MoE ---
     n_experts: int = 0
@@ -44,12 +50,12 @@ class ModelConfig:
     moe_impl: str = "replicated_psum"   # or "routed_a2a" (the paper's routing)
     moe_capacity_factor: float = 2.0    # dispatch-buffer budget
 
-    # --- block structure (other kinds raise in models.blocks) ---
+    # --- SSM / xLSTM / hybrid ---
     ssm_state: int = 0
     ssm_conv: int = 4
     ssm_expand: int = 2
-    slstm_every: int = 0
-    block_pattern: str = "transformer"  # transformer | hybrid (xlstm waits)
+    slstm_every: int = 0             # xlstm: every k-th block is sLSTM
+    block_pattern: str = "transformer"  # transformer | xlstm | hybrid
     n_codebooks: int = 0
 
     # --- numerics / structure ---
@@ -61,7 +67,7 @@ class ModelConfig:
     remat: bool = True               # recompute each layer in the backward
     attn_impl: str = "xla"           # xla | xla_flash (the flash kernel)
     attn_block_q: int = 512          # q-chunking of the prefill attention
-    scan_chunk: int = 256            # mamba chunk length
+    scan_chunk: int = 256            # mLSTM / mamba chunk length
     kv_cache_dtype: str = "bfloat16"
     ssm_scan_dtype: str = "float32"  # or "bfloat16" (plain scan only)
 

@@ -214,36 +214,45 @@ def _tensor(x, device) -> torch.Tensor:
 def params_from_jax(tree, cfg, device="cuda"):
     """The reference's parameters (`jax.tree.map(np.asarray, params)`) as
     the port's `LM`, one `Block` per layer, on `device`: the dense block's
-    leaves, the moe block's `ffn` group (router [D, E], wi / wu [E, D, F],
-    wd [E, F, D] and the `shared` MLP), and hymba's `mamba` group,
-    `attn_ln` and `mamba_ln`."""
+    leaves (its `attn` group GQA, or MLA where it holds `wdq`), the moe
+    block's `ffn` group (router [D, E], wi / wu [E, D, F], wd [E, F, D]
+    and the `shared` MLP), hymba's `mamba` group, `attn_ln` and
+    `mamba_ln`, and xLSTM's `cell` group (sLSTM where it holds `wx`, else
+    mLSTM). Row g of the reference's `blocks[i]` leaves `[n_groups, ...]`
+    is the port's layer g·P + i, P the period of block kinds."""
     from torch import nn
 
-    from repro_torch.models.attention import GQA
+    from repro_torch.models.attention import GQA, MLA
     from repro_torch.models.blocks import Block
     from repro_torch.models.mlp import MLP
     from repro_torch.models.model import LM
     from repro_torch.models.moe import MoE
-    from repro_torch.models.ssm import Mamba
-    groups = {"attn": GQA, "ffn": MLP, "mamba": Mamba, "shared": MLP}
+    from repro_torch.models.ssm import MLSTM, SLSTM, Mamba
+
+    def cls_of(name, d):
+        if name == "attn":
+            return MLA if "wdq" in d else GQA
+        if name == "ffn":
+            return MoE if "router" in d else MLP
+        if name == "cell":
+            return SLSTM if "wx" in d else MLSTM
+        return {"mamba": Mamba, "shared": MLP}[name]
+
     dev = resolve_device(device)
-    if len(tree["blocks"]) != 1:
-        raise NotImplementedError("params_from_jax: one block kind per "
-                                  "period (the dense transformer, moe, "
-                                  "hymba)")
-    stacked = tree["blocks"][0]
+    period = len(tree["blocks"])
 
-    def leaf(v, i):
-        return _tensor(np.asarray(v)[i], dev)
+    def leaf(v, g):
+        return _tensor(np.asarray(v)[g], dev)
 
-    def group(name, d, i):
-        cls = MoE if name == "ffn" and "router" in d else groups[name]
-        return cls(**{k: group(k, v, i) if isinstance(v, dict) else leaf(v, i)
-                      for k, v in d.items()})
+    def group(name, d, g):
+        return cls_of(name, d)(**{k: group(k, v, g) if isinstance(v, dict)
+                                  else leaf(v, g) for k, v in d.items()})
 
-    def block(i):
-        return Block(**{name: (group(name, d, i) if isinstance(d, dict)
-                               else leaf(d, i))
+    def block(layer):
+        stacked = tree["blocks"][layer % period]
+        g = layer // period
+        return Block(**{name: (group(name, d, g) if isinstance(d, dict)
+                               else leaf(d, g))
                         for name, d in stacked.items()})
 
     blocks = nn.ModuleList(block(i) for i in range(cfg.n_layers))
@@ -257,7 +266,8 @@ def params_from_jax(tree, cfg, device="cuda"):
 def caches_from_jax(tree, device="cuda") -> tuple:
     """The reference's contiguous caches (`prefill`'s, as numpy leaves:
     a tuple over the period of dicts stacked `[n_groups, ...]`, e.g.
-    hymba's {"k", "v", "conv", "ssm"}) as the port's, on `device`, dtypes
+    hymba's ({"k", "v", "conv", "ssm"},), xLSTM's seven mlstm dicts and
+    one slstm dict) as the port's, on `device`, dtypes
     kept (bfloat16 through its bits)."""
     dev = resolve_device(device)
     return tuple({name: _tensor(leaf, dev) for name, leaf in c.items()}

@@ -1,9 +1,11 @@
-"""Decoder blocks (counterpart of `repro.models.blocks`): the `dense` kind,
-the `moe` kind (the dense block with a mixture-of-experts FFN) and
-hymba's `hymba` kind (GQA attention and a mamba head side by side on the
-same normed input, each output normed, averaged into the residual, then
-the MLP). The reference's mlstm and slstm kinds raise
-`NotImplementedError` until their slices are ported.
+"""Decoder blocks (counterpart of `repro.models.blocks`): the `dense` kind
+(attention, GQA or MLA by `attn_type`, then the MLP), the `moe` kind (the
+dense block with a mixture-of-experts FFN), hymba's `hymba` kind (GQA
+attention and a mamba head side by side on the same normed input, each
+output normed, averaged into the residual, then the MLP) and xLSTM's
+`mlstm` (the mLSTM cell on the residual) and `slstm` (the sLSTM cell, then
+an MLP max(d_ff, 4 d / 3) wide) kinds. An arch's layers repeat a period of
+kinds (`block_kinds`: xLSTM's seven mlstm and one slstm).
 
 The MoE FFN dispatches by the mesh context (`parallel.sharding`): with no
 mesh open, or `moe_impl="dense"`, the one-shard dense dispatch; under
@@ -13,8 +15,9 @@ one device under an expert-parallel `moe_impl` (its `_ffn_apply` adds it
 to the dense fallback's output, which holds it already), and once on
 every other path: the port follows those (ROADMAP.md §3).
 
-Caches per layer: dense and moe {"k", "v"}; hymba {"k", "v", "conv",
-"ssm"}."""
+Caches per layer (`block_init_cache`): dense and moe {"k", "v"}, or
+{"ckv", "kpe"} under MLA; hymba {"k", "v", "conv", "ssm"}; mlstm
+{"conv", "c", "n", "m"}; slstm {"c", "n", "h", "m"}."""
 from __future__ import annotations
 
 import math
@@ -33,17 +36,8 @@ from repro_torch.parallel.sharding import current_mesh, mesh_cfg
 class Block(Weights):
     """ln1 -> attn -> ln2 -> ffn, the reference's dense block dict (the
     moe kind's ffn is a `moe.MoE`; hymba adds mamba, attn_ln and
-    mamba_ln)."""
-
-
-PORTED_KINDS = ("dense", "moe", "hymba")
-
-
-def _check_kind(kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP.md §1); the "
-            f"port runs the {PORTED_KINDS} blocks")
+    mamba_ln); ln1 -> cell for mlstm, and ln1 -> cell -> ln2 -> ffn for
+    slstm."""
 
 
 def block_kinds(cfg) -> list[str]:
@@ -71,22 +65,53 @@ def layer_windows(cfg) -> list[int]:
 
 
 def init_block(gen: torch.Generator, cfg, kind: str) -> Block:
-    _check_kind(kind)
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(f"attn_type {cfg.attn_type!r} is not "
-                                  f"ported yet (ROADMAP.md §1)")
+    d = cfg.d_model
     pd = dtype_of(cfg.param_dtype)
     ones = dict(dtype=pd, device=gen.device)
-    p = dict(ln1=torch.ones(cfg.d_model, **ones),
-             attn=att.init_gqa(gen, cfg),
-             ln2=torch.ones(cfg.d_model, **ones),
-             ffn=(moe_mod.init_moe(gen, cfg) if kind == "moe" else
-                  init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)))
-    if kind == "hymba":
-        p.update(mamba=ssm.init_mamba(gen, cfg),
-                 attn_ln=torch.ones(cfg.d_model, **ones),
-                 mamba_ln=torch.ones(cfg.d_model, **ones))
+    p = dict(ln1=torch.ones(d, **ones))
+    if kind in ("dense", "moe", "hymba"):
+        p.update(attn=(att.init_mla(gen, cfg) if cfg.attn_type == "mla"
+                       else att.init_gqa(gen, cfg)),
+                 ln2=torch.ones(d, **ones),
+                 ffn=(moe_mod.init_moe(gen, cfg) if kind == "moe" else
+                      init_mlp(gen, d, cfg.d_ff, cfg.param_dtype)))
+        if kind == "hymba":
+            p.update(mamba=ssm.init_mamba(gen, cfg),
+                     attn_ln=torch.ones(d, **ones),
+                     mamba_ln=torch.ones(d, **ones))
+    elif kind == "mlstm":
+        p["cell"] = ssm.init_mlstm(gen, cfg)
+    elif kind == "slstm":
+        p.update(cell=ssm.init_slstm(gen, cfg), ln2=torch.ones(d, **ones),
+                 ffn=init_mlp(gen, d, max(cfg.d_ff, 4 * d // 3),
+                              cfg.param_dtype))
+    else:
+        raise ValueError(f"block kind {kind!r}")
     return Block(**p)
+
+
+def block_init_cache(cfg, kind: str, batch: int, cache_len: int,
+                     device="cuda") -> dict:
+    """A layer's empty cache (zeros) for `batch` sequences of up to
+    `cache_len` tokens: the shapes and dtypes `block_prefill` returns."""
+    kt = dict(dtype=dtype_of(cfg.kv_cache_dtype), device=device)
+    if kind in ("dense", "moe", "hymba"):
+        if cfg.attn_type == "mla" and kind != "hymba":
+            return {"ckv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                                       **kt),
+                    "kpe": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                                       **kt)}
+        shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kv = {"k": torch.zeros(shape, **kt), "v": torch.zeros(shape, **kt)}
+        if kind == "hymba":
+            kv.update(ssm.init_state(cfg, batch, device,
+                                     dtype_of(cfg.compute_dtype)))
+        return kv
+    if kind == "mlstm":
+        return ssm.mlstm_init_state(cfg, batch, device)
+    if kind == "slstm":
+        return ssm.slstm_init_state(cfg, batch, device)
+    raise ValueError(f"block kind {kind!r}")
 
 
 def _ffn_apply(p, cfg, x):
@@ -154,32 +179,53 @@ def _ffn_residual(p: Block, cfg, x):
 
 def block_forward(p: Block, cfg, kind, x, positions, window):
     """x: [B,S,D] -> (x', aux)."""
-    _check_kind(kind)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "hymba":
         a = att.gqa_forward(p.attn, cfg, h, positions, window)
         m, _ = ssm.mamba_forward(p.mamba, cfg, h)
         return _mix(p, cfg, x, a, m), 0.0
-    x = x + att.gqa_forward(p.attn, cfg, h, positions, window)
-    return _ffn_residual(p, cfg, x)
+    if kind == "mlstm":
+        return x + ssm.mlstm_forward(p.cell, cfg, h)[0], 0.0
+    if kind == "slstm":
+        return _ffn_residual(p, cfg, x + ssm.slstm_forward(p.cell, cfg, h)[0])
+    if cfg.attn_type == "mla":
+        a = att.mla_forward(p.attn, cfg, h, positions, window)
+    else:
+        a = att.gqa_forward(p.attn, cfg, h, positions, window)
+    return _ffn_residual(p, cfg, x + a)
 
 
 def block_prefill(p: Block, cfg, kind, x, positions, cache_len, window,
                   past=None):
     """Returns (x', cache, aux). `past`: roped prefix KV (prefix-cache
-    reuse skips recomputing the shared pages; dense and moe)."""
-    _check_kind(kind)
+    reuse skips recomputing the shared pages; dense and moe under GQA)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if past is not None and (kind not in ("dense", "moe")
+                             or cfg.attn_type != "gqa"):
+        # the reference ignores `past` under MLA; refuse rather than
+        # return a cache without the prefix
+        raise NotImplementedError("prefix reuse: GQA transformer families")
+    b = x.shape[0]
     if kind == "hymba":
-        if past is not None:
-            raise NotImplementedError("prefix reuse: GQA transformer "
-                                      "families")
         a, kv = att.gqa_prefill(p.attn, cfg, h, positions, cache_len, window)
-        st0 = ssm.init_state(cfg, x.shape[0], x.device, h.dtype)
+        st0 = ssm.init_state(cfg, b, x.device, h.dtype)
         m, st = ssm.mamba_forward(p.mamba, cfg, h, st0)
         return _mix(p, cfg, x, a, m), {**kv, **st}, 0.0
-    a, cache = att.gqa_prefill(p.attn, cfg, h, positions, cache_len, window,
-                               past=past)
+    if kind == "mlstm":
+        y, st = ssm.mlstm_forward(p.cell, cfg, h,
+                                  ssm.mlstm_init_state(cfg, b, x.device))
+        return x + y, st, 0.0
+    if kind == "slstm":
+        y, st = ssm.slstm_forward(p.cell, cfg, h,
+                                  ssm.slstm_init_state(cfg, b, x.device))
+        x, aux = _ffn_residual(p, cfg, x + y)
+        return x, st, aux
+    if cfg.attn_type == "mla":
+        a, cache = att.mla_prefill(p.attn, cfg, h, positions, cache_len,
+                                   window)
+    else:
+        a, cache = att.gqa_prefill(p.attn, cfg, h, positions, cache_len,
+                                   window, past=past)
     x, aux = _ffn_residual(p, cfg, x + a)
     return x, cache, aux
 
@@ -188,7 +234,6 @@ def block_decode(p: Block, cfg, kind, x, pos, cache, window):
     """x: [B,1,D]; returns (x', cache', aux). The moe kind runs the dense
     dispatch over the B tokens whatever the mesh, as the reference's
     decode does."""
-    _check_kind(kind)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind == "hymba":
         a, kv = att.gqa_decode(p.attn, cfg, h, pos,
@@ -196,7 +241,17 @@ def block_decode(p: Block, cfg, kind, x, pos, cache, window):
         m, st = ssm.mamba_decode(p.mamba, cfg, h, {"conv": cache["conv"],
                                                    "ssm": cache["ssm"]})
         return _mix(p, cfg, x, a, m), {**kv, **st}, 0.0
-    a, cache = att.gqa_decode(p.attn, cfg, h, pos, cache, window)
+    if kind == "mlstm":
+        y, st = ssm.mlstm_decode(p.cell, cfg, h, cache)
+        return x + y, st, 0.0
+    if kind == "slstm":
+        y, st = ssm.slstm_decode(p.cell, cfg, h, cache)
+        x, aux = _ffn_residual(p, cfg, x + y)
+        return x, st, aux
+    if cfg.attn_type == "mla":
+        a, cache = att.mla_decode(p.attn, cfg, h, pos, cache, window)
+    else:
+        a, cache = att.gqa_decode(p.attn, cfg, h, pos, cache, window)
     x = x + a
     h2 = rms_norm(x, p.ln2, cfg.norm_eps)
     if kind == "moe":

@@ -1,16 +1,22 @@
 """LM assembly: embeddings -> blocks -> head (counterpart of
-`repro.models.model` for the single-kind families: the dense GQA
-transformer, its MoE variant and hymba).
+`repro.models.model`: the dense GQA transformer, its MoE variant,
+minicpm3's MLA, hymba and xLSTM).
 
-The reference scans over stacked layer groups; here the layers are an
-`nn.ModuleList` walked by a Python loop, and the caches come back stacked
-over layers as `({"k": [L, B, S, Hkv, Dh], "v": ...},)` (hymba adds
-"conv" [L, B, K-1, d_inner] and "ssm" [L, B, d_inner, d_state]), the
-reference's `[n_groups, ...]` leaves for a period of one block.
+The reference scans over groups of a period of block kinds (`block_kinds`,
+one kind for most archs, xLSTM's 7 mlstm + 1 slstm), with stacked
+parameters. Here the layers are an `nn.ModuleList` walked by a Python
+loop: layer g·P + i has kind `block_kinds(cfg)[i]` and the window
+`layer_windows(cfg)[g·P + i]`. The caches keep the reference's layout, a
+tuple over the period of dicts whose leaves are stacked over the groups,
+`[n_groups, B, ...]`: `({"k": [L, B, S, Hkv, Dh], "v": ...},)` for a
+period of one GQA block (hymba adds "conv" and "ssm"; MLA's are "ckv"
+and "kpe"), and for xLSTM seven mlstm dicts and one slstm dict of
+[L / 8, B, ...] leaves.
 
   forward            [B,S] tokens -> ([B,S,V] logits, aux)
-  prefill            + contiguous KV caches
-  prefill_with_past  suffix prefill after cached prefix KV
+  init_caches        the empty caches `prefill` fills
+  prefill            + contiguous caches
+  prefill_with_past  suffix prefill after cached prefix KV (GQA)
   decode_step        one token against the caches
   cross_entropy      the training loss over `forward`'s logits
 
@@ -25,8 +31,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.blocks import (block_decode, block_forward,
-                                       block_kinds, block_prefill,
-                                       init_block, layer_windows)
+                                       block_init_cache, block_kinds,
+                                       block_prefill, init_block,
+                                       layer_windows)
 from repro_torch.models.common import dtype_of, embed_init, rms_norm
 from repro_torch.models.params import Weights
 
@@ -41,11 +48,10 @@ def init_params(cfg, generator: torch.Generator) -> LM:
     """Random parameters in `param_dtype` from `generator` (on the
     generator's device): matmul weights N(0,1)/sqrt(d_in), embeddings
     N(0,1)*0.02, norms one, as the reference draws them."""
-    kinds = block_kinds(cfg)
     if cfg.n_codebooks:
         raise NotImplementedError("codebook models are not ported yet")
-    blocks = nn.ModuleList(init_block(generator, cfg, kinds[0])
-                           for _ in range(cfg.n_layers))
+    blocks = nn.ModuleList(init_block(generator, cfg, kind)
+                           for kind in _layer_kinds(cfg))
     dev = generator.device
     p = dict(blocks=blocks,
              final_norm=torch.ones(cfg.d_model, dtype=dtype_of(
@@ -78,9 +84,44 @@ def _positions(b: int, s: int, start: int, device) -> torch.Tensor:
                                  device=device))[None].expand(b, s)
 
 
-def _stack(caches: list[dict]) -> tuple:
-    return ({name: torch.stack([c[name] for c in caches])
-             for name in caches[0]},)
+def _layer_kinds(cfg) -> list[str]:
+    """Each layer's block kind: layer g·P + i has the period's kind i."""
+    kinds = block_kinds(cfg)
+    if cfg.n_layers % len(kinds):
+        raise ValueError(f"{cfg.n_layers} layers in periods of "
+                         f"{len(kinds)} blocks")
+    return kinds * (cfg.n_layers // len(kinds))
+
+
+def _layers(p: LM, cfg):
+    """(layer, kind, window, params) for every layer."""
+    return zip(range(cfg.n_layers), _layer_kinds(cfg), layer_windows(cfg),
+               p.blocks)
+
+
+def _stack(cfg, caches: list[dict]) -> tuple:
+    """Per-layer caches -> a tuple over the period of dicts stacked over
+    the groups (layer g·P + i is row g of dict i)."""
+    period = len(block_kinds(cfg))
+    return tuple({name: torch.stack([c[name] for c in caches[i::period]])
+                  for name in caches[i]} for i in range(period))
+
+
+def _layer_cache(cfg, caches: tuple, layer: int) -> dict:
+    period = len(block_kinds(cfg))
+    return {name: t[layer // period]
+            for name, t in caches[layer % period].items()}
+
+
+def init_caches(p: LM, cfg, batch: int, cache_len: int) -> tuple:
+    """Empty caches for `batch` sequences of up to `cache_len` tokens, on
+    the parameters' device, in `prefill`'s layout."""
+    ng = cfg.n_layers // len(block_kinds(cfg))
+    dev = p.embed.device
+    return tuple({name: t.expand((ng,) + t.shape).contiguous()
+                  for name, t in block_init_cache(cfg, kind, batch,
+                                                  cache_len, dev).items()}
+                 for kind in block_kinds(cfg))
 
 
 def forward(p: LM, cfg, tokens, positions=None):
@@ -90,10 +131,9 @@ def forward(p: LM, cfg, tokens, positions=None):
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
-    kind = block_kinds(cfg)[0]
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
-    for bp, win in zip(p.blocks, layer_windows(cfg)):
+    for _, kind, win, bp in _layers(p, cfg):
         if remat:
             x, a = checkpoint(block_forward, bp, cfg, kind, x, positions,
                               win, use_reentrant=False)
@@ -111,15 +151,14 @@ def prefill(p: LM, cfg, tokens, cache_len: int, positions=None):
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
-    kind = block_kinds(cfg)[0]
     caches = []
     aux = torch.zeros((), device=x.device)
-    for bp, win in zip(p.blocks, layer_windows(cfg)):
+    for _, kind, win, bp in _layers(p, cfg):
         x, c, a = block_prefill(bp, cfg, kind, x, positions, cache_len, win)
         caches.append(c)
         aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), _stack(caches), aux
+    return _head(p, cfg, x), _stack(cfg, caches), aux
 
 
 def prefill_with_past(p: LM, cfg, tokens, past_k, past_v, cache_len: int):
@@ -127,37 +166,36 @@ def prefill_with_past(p: LM, cfg, tokens, past_k, past_v, cache_len: int):
     past_k/v: [L, B, S_past, Hkv, Dh] roped. Returns (logits, caches, aux)
     with caches covering past+suffix. The moe kind too, which the
     reference's refuses: its FFN sees only the suffix's tokens, so where
-    the full prompt's dispatch would drop lanes the two can differ."""
-    kind = block_kinds(cfg)[0]
-    if kind not in ("dense", "moe"):
+    the full prompt's dispatch would drop lanes the two can differ. MLA
+    raises, where the reference ignores `past`."""
+    if (block_kinds(cfg)[0] not in ("dense", "moe")
+            or cfg.attn_type != "gqa"):
         raise NotImplementedError("prefix reuse: GQA transformer families")
     x = _embed(p, cfg, tokens)
     b, s, _ = x.shape
     positions = _positions(b, s, past_k.shape[2], x.device)
     caches = []
     aux = torch.zeros((), device=x.device)
-    for i, (bp, win) in enumerate(zip(p.blocks, layer_windows(cfg))):
+    for i, kind, win, bp in _layers(p, cfg):
         x, c, a = block_prefill(bp, cfg, kind, x, positions, cache_len,
                                 win, past={"k": past_k[i], "v": past_v[i]})
         caches.append(c)
         aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), _stack(caches), aux
+    return _head(p, cfg, x), _stack(cfg, caches), aux
 
 
 def decode_step(p: LM, cfg, token, pos, caches):
     """token: [B,1]; pos: [B] int; caches as `prefill` returns them.
     Returns (logits [B,1,V], caches')."""
     x = _embed(p, cfg, token)
-    kind = block_kinds(cfg)[0]
     new = []
-    for i, (bp, win) in enumerate(zip(p.blocks, layer_windows(cfg))):
+    for i, kind, win, bp in _layers(p, cfg):
         x, c, _ = block_decode(bp, cfg, kind, x, pos,
-                            {name: t[i] for name, t in caches[0].items()},
-                            win)
+                               _layer_cache(cfg, caches, i), win)
         new.append(c)
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
-    return _head(p, cfg, x), _stack(new)
+    return _head(p, cfg, x), _stack(cfg, new)
 
 
 def cross_entropy(logits, labels, mask=None):

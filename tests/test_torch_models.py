@@ -9,7 +9,8 @@ at the same points and sum in f32, so logits and caches agree to 1e-4
 angles differ). Also: the config against the reference's, the chunked
 causal attention (`attn_block_q` below the sequence), the load-time
 compute-dtype copy, the initializer's shapes, names and scales, and the
-kinds that are not ported.
+block kinds: xLSTM's and MLA's against the reference's leaves, codebook
+models refused.
 """
 import dataclasses
 
@@ -251,13 +252,25 @@ def test_init_params_shapes_names_and_scales(params):
 
 
 def test_unported_kinds_raise():
+    """The mlstm, slstm and MLA blocks, once refused, build with the
+    reference's leaf names and shapes; codebook models still raise."""
+    from repro.models.blocks import init_block as j_init_block
     cfg = get_reduced(ARCH)
     assert block_kinds(cfg) == ["dense"]
     assert block_kinds(cfg.replace(n_experts=4)) == ["moe"]
     assert block_kinds(cfg.replace(block_pattern="xlstm")) == [
         "mlstm"] * 7 + ["slstm"]
-    for kind in ("mlstm", "slstm"):
-        with pytest.raises(NotImplementedError, match=kind):
-            init_block(torch.Generator(), cfg, kind)
-    with pytest.raises(NotImplementedError, match="attn_type"):
-        init_block(torch.Generator(), cfg.replace(attn_type="mla"), "dense")
+    for c, kind in ((get_reduced("xlstm-1.3b"), "mlstm"),
+                    (get_reduced("xlstm-1.3b"), "slstm"),
+                    (get_reduced("minicpm3-4b"), "dense")):
+        want = jax.eval_shape(lambda k: j_init_block(k, c, kind),
+                              jax.random.PRNGKey(0))
+        want = {"/".join(str(getattr(k, "key", k)) for k in path):
+                tuple(leaf.shape)
+                for path, leaf in jax.tree_util.tree_flatten_with_path(
+                    want)[0]}
+        got = {n.replace(".", "/"): tuple(t.shape) for n, t in
+               init_block(torch.Generator(), c, kind).named_parameters()}
+        assert got == want, kind
+    with pytest.raises(NotImplementedError, match="codebook"):
+        TM.init_params(cfg.replace(n_codebooks=4), torch.Generator())

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where a plan's time goes in the PyTorch/CUDA port, per backend, on the
 main path's own stream; with --serve, where the serving engine's time
-goes; with --hymba, where hymba-1.5b's prefill and decode time goes;
-with --sharded, where the sharded store engine's time goes; with
---train, where a training step's time goes.
+goes; with --hymba, --xlstm or --mla, where hymba-1.5b's,
+xlstm-1.3b's or minicpm3-4b's prefill and decode time goes; with
+--sharded, where the sharded store engine's time goes; with --train,
+where a training step's time goes.
 
-    python3 tools/torch_store_profile.py [--serve | --hymba | --sharded |
-                                          --train]
+    python3 tools/torch_store_profile.py [--serve | --hymba | --xlstm |
+                                          --mla | --sharded | --train]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -40,6 +41,10 @@ depth (bf16 compute, attn_impl "xla_flash", exec mode gpu), one prefill of
 8 prompts x 4,096 tokens and then 8 decode steps, each after an
 unprofiled warm-up, with the same columns per prefill and per decode step
 (the flash_attention and selective_scan kernels among the port's).
+--xlstm and --mla do the same for chip_smoke.py's phases 9 and 10:
+xlstm-1.3b and minicpm3-4b at full width and depth (bf16 compute), one
+prefill of 8 prompts x 4,096 tokens and 8 decode steps (no port kernel
+is on either path).
 
 --sharded profiles chip_smoke.py's phase 6 cells: det_skiplist and
 tiered3/lru behind the sharded `StoreEngine` on the production mesh
@@ -199,22 +204,21 @@ def serve_profile(torch, cs, exec_) -> None:
           flush=True)
 
 
-def hymba_profile(torch, cs, exec_) -> None:
-    """chip_smoke's hymba cell: one profiled prefill and
-    HYMBA_DECODE_STEPS profiled decode steps, each after a warm-up."""
+def model_profile(torch, exec_, label, cfg, b, p, new, seed) -> None:
+    """One profiled prefill of b prompts x p tokens (cache_len p + new)
+    and HYMBA_DECODE_STEPS profiled decode steps, each after a warm-up;
+    seeded f32 parameters with a compute copy, as chip_smoke draws
+    them."""
     import numpy as np
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    cfg = get_config(cs.HYMBA_ARCH).replace(attn_impl="xla_flash")
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     params.load_compute_copy(cfg.compute_dtype)
-    b, p = cs.HYMBA_BATCH, cs.HYMBA_PROMPT
-    rng = np.random.default_rng(15)
+    rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, p))).cuda()
     st = {}
 
     def prefill():
-        lg, st["caches"], _ = M.prefill(params, cfg, toks, p + cs.HYMBA_NEW)
+        lg, st["caches"], _ = M.prefill(params, cfg, toks, p + new)
         st["tok"], st["pos"] = torch.argmax(lg[:, -1], -1), p
 
     def decode(n):
@@ -226,10 +230,10 @@ def hymba_profile(torch, cs, exec_) -> None:
 
     prefill()
     report(torch, exec_, prefill, 1, f"{b} x {p} tokens", "prefill",
-           "hymba prefill")
+           f"{label} prefill")
     decode(2)
     report(torch, exec_, lambda: decode(HYMBA_DECODE_STEPS),
-           HYMBA_DECODE_STEPS, f"{b} lanes", "step", "hymba decode")
+           HYMBA_DECODE_STEPS, f"{b} lanes", "step", f"{label} decode")
 
 
 def train_profile(torch, cs, exec_) -> None:
@@ -277,8 +281,19 @@ def main() -> int:
     if "--serve" in sys.argv[1:]:
         serve_profile(torch, cs, exec_)
         return 0
-    if "--hymba" in sys.argv[1:]:
-        hymba_profile(torch, cs, exec_)
+    from repro_torch.configs import get_config
+    for flag, arch, label in (("--hymba", cs.HYMBA_ARCH, "hymba"),
+                              ("--xlstm", cs.XLSTM_ARCH, "xlstm"),
+                              ("--mla", cs.MLA_ARCH, "mla")):
+        if flag not in sys.argv[1:]:
+            continue
+        if label == "hymba":
+            model_profile(torch, exec_, label, get_config(arch).replace(
+                attn_impl="xla_flash"), cs.HYMBA_BATCH, cs.HYMBA_PROMPT,
+                cs.HYMBA_NEW, 15)
+        else:
+            model_profile(torch, exec_, label, get_config(arch),
+                          cs.LM_BATCH, cs.LM_PROMPT, cs.LM_NEW, 24)
         return 0
     if "--train" in sys.argv[1:]:
         train_profile(torch, cs, exec_)
