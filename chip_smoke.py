@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
 hymba-1.5b's prefill and decode, the sharded store, training, the MoE
-family's serving, and xlstm-1.3b's and minicpm3-4b's prefill and decode)
+family's serving, xlstm-1.3b's and minicpm3-4b's prefill and decode, the
+dense archs' serving, llava's frontend prefix and musicgen's codebooks)
 on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
@@ -169,12 +170,12 @@ is non-zero and no result line is printed):
 6. The sharded store (paper §VI): the production single-pod mesh (16, 16)
    ("data", "model") folded onto the card, `paper_kvstore`'s 65,536 keys
    and 4,096 lanes a shard (2^20 lanes a step), pool factor 2, through
-   `store.engine.StoreEngine`: 9 preload steps of fresh inserts in exec
+   `store.engine.StoreEngine`: 3 preload steps of fresh inserts in exec
    mode gpu, then one Workload 1 and one Workload 2 step in modes gpu
    and torch (the torch engine from the gpu state after the preload:
    the per-shard loop is host-bound, so this keeps the script inside its
    limit), keys uniform over u64. det_skiplist (2^24 keys in all) and
-   obs:tiered3/lru (32,768 a shard, so the preload spills): no lane
+   obs:tiered3/lru (8,192 a shard, so the preload spills): no lane
    dropped at any step, gpu == torch on the workload steps and the final
    states, every lane == a dict oracle (run in a worker process), the
    summed sizes == the oracle's live count; shards
@@ -260,9 +261,35 @@ is non-zero and no result line is printed):
    rope keys roped one position late; check (b)'s bound allows for the
    bf16 latent cache, its planted fault the latent cache one position
    late.
-11. The calls by shape of the store kernels over phases 3-6 and 8, a
-   `kernels` JSON line (with phase 8's two paged_attention rows, each
-   with its `shape`), then the last line
+11. Dense serving: qwen1.5-110b (4 of 80 layers, ~47.5 GB of f32
+   weights and their bf16 copy), llama3-405b (2 of 126, ~63.5 GB) and
+   llava-next-mistral-7b (all 32, ~43.5 GB, text only: the engine takes
+   no prefix, as the reference's) at full width, one after the other,
+   as phase 8 serves (16 slots, 1,024 pages, phase 4's trace cut to 16
+   requests and drawn over the arch's own vocabulary; paged_attention
+   launches == decode steps x layers; checks (b) and (a)); the
+   parameters and the pool's K / V bytes held against a reckoning from
+   the reference's shapes; then paged_attention at each decode shape,
+   G 8, 16 and 4 over 8 KV heads, against its plain version, timed
+   beside SDPA and its bound.
+12. llava's frontend prefix, on phase 11's llava weights: `synth_batch`
+   on `prefill_32k` cut to 8 sequences of 4,096 positions (1,152
+   `prefix_embeds` rows + 2,944 tokens) through `make_serve_prefill`,
+   then 32 `make_serve_decode` steps in exec mode gpu, no kernel launch
+   allowed; caches and state bytes as in phases 9-10. Check (a): f32 at
+   2 layers, 2 prompts of the prefix + 128 tokens, card vs CPU; check
+   (b): f32 at full depth, 2 prompts of the prefix + 512 tokens and 8
+   decode steps against a teacher-forced `forward` with the prefix, the
+   prefix dropped and the prefix's positions one late as planted
+   faults.
+13. musicgen-medium at full width and depth (48 layers, 4 codebooks,
+   1.837 B parameters) as phases 9-10: 8 x 4,096 frames, 32 decode
+   steps, no launch; check (a) at 4 layers, its planted fault codebook
+   0's embedding left out; check (b), the head's codebook slices rolled
+   by one.
+14. The calls by shape of the store kernels over phases 3-6, 8 and 11,
+   a `kernels` JSON line (with phases 8 and 11's paged_attention rows,
+   each with its `shape`), then the last line
    `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -432,24 +459,27 @@ HYMBA_A_CACHE_TOL = {"k": 2e-2, "v": 2e-2, "conv": 5e-3, "ssm": 5e-3}
 # phase 6, the sharded store: the production single-pod mesh
 # (`launch/mesh.py`: (16, 16) ("data", "model")) folded onto one card, a
 # `paper_kvstore` store of 65,536 keys and 4,096 lanes a shard, pool
-# factor 2; 9 preload steps of 2^20 fresh inserts (0.5625 * 2^24 keys,
-# 36,864 a shard: the tier cell's 32,768 still spill), then
-# SHARD_WL_STEPS steps of Workload 1 and of Workload 2 at 2^20 lanes. The
-# per-shard loop is host-bound: 2.2-4.5 s a step over det_skiplist and
-# 10-20 s over tiered3/lru in mode gpu, 2.6-4.7 and 12-23 s in mode torch,
-# on the H100 machines' hosts (PERF.md §6); this phase took 350-547 s
-# with 12 preload steps. So the preload runs in mode gpu only, its depth
-# is cut from 12 steps to 9, the torch engine starts from its end state,
-# and one step of each workload runs (not 4): the script stays inside
-# its time limit on the slower hosts
+# factor 2; 3 preload steps of 2^20 fresh inserts (0.1875 * 2^24 keys,
+# 12,288 a shard: the tier cell's 8,192 a shard spill ~4,096 a shard, as
+# 32,768 did after 9 steps), then SHARD_WL_STEPS steps of Workload 1 and
+# of Workload 2 at 2^20 lanes. The per-shard loop is host-bound: 2.2-4.5
+# s a step over det_skiplist and 10-20 s over tiered3/lru in mode gpu,
+# 2.6-4.7 and 12-23 s in mode torch, on the H100 machines' hosts (PERF.md
+# §6); this phase took 350-547 s with 12 preload steps and 440 s with 9
+# on a slow host, where the whole script took 1,195 s of its 1,200. So
+# the preload runs in mode gpu only, its depth is cut from 12 steps to 3
+# with the tier cell's capacity cut from 32,768 to 8,192 a shard, the
+# torch engine starts from its end state, and one step of each workload
+# runs (not 4): the script stays inside its time limit on the slower
+# hosts
 SHARD_AXES = ("data", "model")
 SHARD_SIZES = (16, 16)
 SHARD_CAP = 65536
 SHARD_LANES = 4096
 SHARD_POOL_FACTOR = 2
-SHARD_PRELOAD_STEPS = 9
+SHARD_PRELOAD_STEPS = 3
 SHARD_WL_STEPS = 1
-SHARD_TIER_CAP = 32768      # tiered3/lru a shard, half: the preload spills
+SHARD_TIER_CAP = 8192       # tiered3/lru a shard: the preload spills
 # the tier cell runs observed: its workload steps are the fault-free run
 # the resilience checks compare with
 SHARD_CELLS = (("det_skiplist", SHARD_CAP, ("skiplist_search",)),
@@ -1318,7 +1348,7 @@ def shard_shapes(torch, rng):
     """skiplist_search, tier_find and tier_apply at the sharded store's
     shape (phase 6): a pool of SHARD_LANES * SHARD_POOL_FACTOR lanes
     (3/4 stored keys) on one shard, a 3/4-full skiplist of SHARD_CAP keys
-    and a tiered3 stack of SHARD_TIER_CAP with spill runs (the level
+    and a tiered3 stack of SHARD_CAP / 2 with spill runs (the level
     layout, as the shard's `tiered3/lru` runs it). Each is checked
     against its plain version and its bound's replay, timed beside its
     bound (and skiplist_search beside `torch.searchsorted`). Returns
@@ -1353,11 +1383,12 @@ def shard_shapes(torch, rng):
     probes = {("skiplist_search", f"sharded pool, {pool} lanes, "
                f"{SHARD_CAP}-key shard"): r}
     del shard, lay
-    t3 = build_tier_stack(torch, rng, from_u64(keys, DEV), SHARD_TIER_CAP)
-    tq = from_u64(mixed_keys(rng, keys[:SHARD_TIER_CAP], pool), DEV)
+    tier_cap = SHARD_CAP // 2
+    t3 = build_tier_stack(torch, rng, from_u64(keys, DEV), tier_cap)
+    tq = from_u64(mixed_keys(rng, keys[:tier_cap], pool), DEV)
     vals = from_u64(rng.integers(0, 2**64 - 1, pool, dtype=np.uint64), DEV)
     tiers_ = {}
-    tier_rows(torch, tiers_, t3, f"sharded pool, {SHARD_TIER_CAP}-key "
+    tier_rows(torch, tiers_, t3, f"sharded pool, {tier_cap}-key "
               f"tiered3 shard, spill", tq, vals,
               torch.ones(pool, dtype=torch.bool, device=DEV), ("level",))
     del t3
@@ -5136,7 +5167,7 @@ def moe_ep_check(torch, label, cfg, params, prompt):
     return report
 
 
-def moe_kernel_row(torch, arch, seed, launches):
+def paged_kernel_row(torch, arch, seed, launches):
     """paged_attention at the arch's served decode shape (16 requests,
     its heads, D 128, pages of 16, a 1,024-page pool) in bf16, within the
     bf16 elementwise limit of the plain version, timed beside SDPA and the
@@ -5177,37 +5208,51 @@ def moe_kernel_row(torch, arch, seed, launches):
             "library_ms": r["library_ms"]}
 
 
-def moe_serve(torch, arch, seed: int):
-    """One MoE arch at full width and MOE_LAYERS layers behind `Engine` in
-    exec mode gpu: the served run (launch counts set to 0 just before and
+def engine_serve(torch, arch, cfg, seed: int, trace, extra=None):
+    """One arch (`cfg`, depth cut or not) behind `Engine` (MOE_BATCH
+    slots, MOE_NUM_PAGES pages of SERVE_PAGE tokens) in exec mode gpu:
+    the served run of `trace` (launch counts set to 0 just before and
     read just after), check (b) on its first MOE_B_STEPS decode steps,
-    the paper's routing at full width (`moe_ep_check`), check (a) in f32
-    on MOE_A_PROMPTS prompts x MOE_A_NEW tokens, then the paged_attention
-    row at the arch's decode shape. Returns (launches, report, row)."""
+    `extra(cfg, params, trace)` (a report of its own, kept under "extra"),
+    then check (a) in f32 on MOE_A_PROMPTS prompts x MOE_A_NEW tokens. A
+    dense arch's parameters are counted against `reckon_params` and the
+    pool's K / V bytes against `reckon_state_bytes`. Returns (launches,
+    report, params)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.models.model import init_params
     from repro_torch.serving import traffic
     from repro_torch.serving.engine import Engine
     from repro_torch.store import obs
-    label = f"moe {arch}"
-    cfg = get_config(arch).replace(n_layers=MOE_LAYERS)
+    label = f"{'moe ' if cfg.is_moe else ''}{arch}"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(DEV).manual_seed(seed))
     n_params = sum(p.numel() for p in params.parameters())
-    trace = traffic.make_trace(seed, **MOE_TRACE)
     engine = Engine(cfg, params, max_reqs=MOE_BATCH,
                     num_pages=MOE_NUM_PAGES, page_size=SERVE_PAGE,
                     max_pages_per_req=SERVE_PAGES_PER_REQ, device=DEV)
     torch.cuda.synchronize()
     plens = [len(r.prompt) for r in trace]
+    if cfg.is_moe:
+        what = (f"{cfg.n_experts} experts top-{cfg.n_experts_active}, "
+                f"moe_impl {cfg.moe_impl}")
+    else:
+        reckoned = reckon_params(cfg)
+        pool = 2 * engine.kv.k.numel() * engine.kv.k.element_size()
+        what = (f"reckoned from the reference's shapes {reckoned}; a pool "
+                f"of {pool} K / V bytes (reckoned "
+                f"{reckon_state_bytes(cfg, MOE_NUM_PAGES * SERVE_PAGE)})")
+        check(n_params == reckoned, f"{label}: {n_params} parameters, "
+              f"reckoned {reckoned}")
+        check(pool == reckon_state_bytes(cfg, MOE_NUM_PAGES * SERVE_PAGE),
+              f"{label}: the pool's K / V bytes differ from the reckoning")
     print(f"{label} on {card_line()}: {cfg.n_layers} of "
-          f"{get_config(arch).n_layers} layers at full width, {n_params} parameters (f32 + a bf16 copy: "
-          f"{6 * n_params / 1e9:.2f} GB), {cfg.n_experts} experts top-"
-          f"{cfg.n_experts_active}, moe_impl {cfg.moe_impl}; trace of "
-          f"{len(trace)} requests, prompts {min(plens)}..{max(plens)} "
-          f"tokens; set-up {time.perf_counter() - t0:.3f} s, "
+          f"{get_config(arch).n_layers} layers at full width, {n_params} "
+          f"parameters (f32 + a bf16 copy: {6 * n_params / 1e9:.2f} GB), "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, {what}; "
+          f"trace of {len(trace)} requests, prompts {min(plens)}.."
+          f"{max(plens)} tokens; set-up {time.perf_counter() - t0:.3f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated",
           flush=True)
     b_report = dict(steps=0, diff=[], tol=[], bad=0, argmax_checked=0,
@@ -5230,7 +5275,7 @@ def moe_serve(torch, arch, seed: int):
     report = served_times(tr, m, engine, MOE_B_STEPS)
     report.update(replay_s=wall,
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                  weights_gb=6 * n_params / 1e9)
+                  weights_gb=6 * n_params / 1e9, params=n_params)
     del engine
     torch.cuda.empty_cache()
     print(f"{label} decode: {report['decode_tokens_per_s']:.1f} tokens/s, "
@@ -5242,18 +5287,8 @@ def moe_serve(torch, arch, seed: int):
           f"rate {report['prefix_hit_rate']:.4f}; peak "
           f"{report['peak_gib']:.2f} GiB allocated beside "
           f"{report['weights_gb']:.2f} GB of weights", flush=True)
-
-    ep = moe_ep_check(torch, label, cfg, params, trace[0].prompt)
-    report["ep"] = ep
-    print(f"{label} routing at full width: layer 0's FFN input of the first "
-          f"prefill ({ep['tokens']} tokens) on a {MOE_MESH[1]} "
-          f"{MOE_MESH[0]} mesh; dropped lanes {json.dumps(ep['drops'])} "
-          f"(capacity factor {cfg.moe_capacity_factor}); max |y - dense| "
-          f"{json.dumps(ep['diff'])} (routed_a2a over the {ep['kept']} "
-          f"tokens neither dropped a lane of), bound {ep['bound']:.4g}; "
-          f"planted fault {json.dumps(ep['fault'])}; FFN ms a layer "
-          f"{json.dumps(ep['ms'])}, and {ep['decode_ms']:.4f} for the dense "
-          f"dispatch at the decode batch of {MOE_BATCH} tokens", flush=True)
+    if extra is not None:
+        report["extra"] = extra(cfg, params, trace)
 
     t0 = time.perf_counter()
     checked, low, ties = serve_reference_check(
@@ -5266,11 +5301,39 @@ def moe_serve(torch, arch, seed: int):
     check(checked - low - ties >= checked // 2, f"{label} check (a): "
           f"fewer than half the tokens compared")
     report.update(a_checked=checked, a_low=low, a_ties=ties)
+    return launches, report, params
+
+
+def moe_serve(torch, arch, seed: int):
+    """One MoE arch at full width and MOE_LAYERS layers behind `Engine`
+    (`engine_serve`), with the paper's routing checked at full width
+    (`moe_ep_check`) between checks (b) and (a), then the paged_attention
+    row at the arch's decode shape. Returns (launches, report, row)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import traffic
+    label = f"moe {arch}"
+    cfg = get_config(arch).replace(n_layers=MOE_LAYERS)
+
+    def ep(cfg, params, trace):
+        ep = moe_ep_check(torch, label, cfg, params, trace[0].prompt)
+        print(f"{label} routing at full width: layer 0's FFN input of the "
+              f"first prefill ({ep['tokens']} tokens) on a {MOE_MESH[1]} "
+              f"{MOE_MESH[0]} mesh; dropped lanes {json.dumps(ep['drops'])} "
+              f"(capacity factor {cfg.moe_capacity_factor}); max |y - "
+              f"dense| {json.dumps(ep['diff'])} (routed_a2a over the "
+              f"{ep['kept']} tokens neither dropped a lane of), bound "
+              f"{ep['bound']:.4g}; planted fault {json.dumps(ep['fault'])}; "
+              f"FFN ms a layer {json.dumps(ep['ms'])}, and "
+              f"{ep['decode_ms']:.4f} for the dense dispatch at the decode "
+              f"batch of {MOE_BATCH} tokens", flush=True)
+        return ep
+    launches, report, params = engine_serve(
+        torch, arch, cfg, seed, traffic.make_trace(seed, **MOE_TRACE), ep)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    row = moe_kernel_row(torch, arch, seed,
-                         launches.get("paged_attention", 0))
+    row = paged_kernel_row(torch, arch, seed,
+                           launches.get("paged_attention", 0))
     return launches, report, row
 
 
@@ -5338,12 +5401,19 @@ MLA_B_TOL = 1e-2
 
 def reckon_params(cfg) -> int:
     """The parameter count the reference's shapes give (`init_params`),
-    from the config alone."""
+    from the config alone: the dense kind's GQA (its q / k / v biases and
+    q / k norms where the config has them) or MLA, and a codebook model's
+    n_cb embedding tables and its head of n_cb·Vp columns."""
     from repro_torch.models.blocks import block_kinds
     d, h, di = cfg.d_model, cfg.n_heads, cfg.ssm_expand * cfg.d_model
+    dh, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
 
     def mlp(f):
         return 3 * d * f
+
+    def gqa():
+        return (2 * d * h * dh + 2 * d * hkv * dh
+                + cfg.qkv_bias * (h + 2 * hkv) * dh + cfg.qk_norm * 2 * dh)
 
     def layer(kind):
         if kind == "mlstm":
@@ -5352,6 +5422,8 @@ def reckon_params(cfg) -> int:
         if kind == "slstm":
             return (2 * d + 2 * d * 4 * d + 4 * d + d * d
                     + mlp(max(cfg.d_ff, 4 * d // 3)))
+        if cfg.attn_type == "gqa":
+            return 2 * d + gqa() + mlp(cfg.d_ff)
         qd = cfg.qk_nope_dim + cfg.qk_rope_dim
         attn = (d * cfg.q_lora_rank + cfg.q_lora_rank
                 + cfg.q_lora_rank * h * qd + d * cfg.kv_lora_rank
@@ -5362,13 +5434,13 @@ def reckon_params(cfg) -> int:
     kinds = block_kinds(cfg)
     blocks = sum(layer(k) for k in kinds) * (cfg.n_layers // len(kinds))
     heads = 1 if cfg.tie_embeddings else 2
-    return blocks + heads * cfg.padded_vocab * d + d
+    return blocks + heads * max(cfg.n_codebooks, 1) * cfg.padded_vocab * d + d
 
 
 def reckon_state_bytes(cfg, cache_len: int) -> int:
     """Decode state bytes a sequence: xLSTM's per-layer (conv, C, n, m) and
     (c, n, h, m); MLA's (kv_lora_rank + qk_rope_dim) values a token a
-    layer in `kv_cache_dtype`."""
+    layer in `kv_cache_dtype`, GQA's K and V (2 · Hkv · Dh values)."""
     from repro_torch.models.blocks import block_kinds
     from repro_torch.models.common import dtype_of
     kinds = block_kinds(cfg)
@@ -5380,7 +5452,9 @@ def reckon_state_bytes(cfg, cache_len: int) -> int:
     per = {"mlstm": (cfg.ssm_conv - 1) * di * ct
            + 4 * cfg.n_heads * (dh * dh + dh + 1),
            "slstm": 4 * 4 * cfg.d_model,
-           "dense": cache_len * (cfg.kv_lora_rank + cfg.qk_rope_dim) * kt}
+           "dense": cache_len * kt * (
+               cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.attn_type == "mla"
+               else 2 * cfg.n_kv_heads * cfg.resolved_head_dim)}
     return ng * sum(per[k] for k in kinds)
 
 
@@ -5423,21 +5497,22 @@ def rel_dist(torch, got, ref) -> float:
 
 
 def lm_served(torch, label, cfg, params, toks):
-    """The served run in exec mode gpu: prefill `toks` at cache_len
-    prompt + LM_NEW, then LM_NEW greedy decode steps; the launch counts
-    set to 0 just before and read just after. Checks finite logits,
-    tokens inside the vocabulary and every cache leaf's shape and dtype
-    against `init_caches`'. Returns (report, launches)."""
+    """The served run in exec mode gpu: prefill `toks` ([B, S], or a
+    codebook model's [B, n_cb, S]) at cache_len prompt + LM_NEW, then
+    LM_NEW greedy decode steps; the launch counts set to 0 just before
+    and read just after. Checks finite logits, tokens inside the
+    vocabulary and every cache leaf's shape and dtype against
+    `init_caches`'. Returns (report, launches)."""
     from repro_torch.kernels import cuda
     from repro_torch.models import model as M
-    b, plen = toks.shape
+    b, plen = toks.shape[0], toks.shape[-1]
     cache_len = plen + LM_NEW
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     cuda.reset_launches()
     t0 = time.perf_counter()
     logits, caches, _ = M.prefill(params, cfg, toks, cache_len)
-    first = logits[:, -1, :cfg.vocab_size].clone()
+    first = logits[:, -1][..., :cfg.vocab_size].clone()
     del logits
     tok = torch.argmax(first, -1)
     torch.cuda.synchronize()
@@ -5447,16 +5522,16 @@ def lm_served(torch, label, cfg, params, toks):
     t0 = time.perf_counter()
     for i in range(LM_NEW):
         pos = torch.full((b,), plen + i, device=DEV)
-        lg, caches = M.decode_step(params, cfg, tok[:, None], pos, caches)
-        finite = finite and bool(torch.isfinite(lg[:, 0, :cfg.vocab_size])
-                                 .all())
-        tok = torch.argmax(lg[:, 0], -1)
+        lg, caches = M.decode_step(params, cfg, tok[..., None], pos, caches)
+        finite = finite and bool(torch.isfinite(
+            lg[:, 0][..., :cfg.vocab_size]).all())
+        tok = torch.argmax(lg[:, 0][..., :cfg.vocab_size], -1)
         gen.append(tok)
     torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    gen = torch.stack(gen, 1)
+    gen = torch.stack(gen, -1)
     print(f"{label}: prefill {b} x {plen} tokens {t_pre:.3f} s, {LM_NEW} "
           f"decode steps {t_dec:.3f} s, launches {json.dumps(launches)}",
           flush=True)
@@ -5486,37 +5561,60 @@ def lm_served(torch, label, cfg, params, toks):
         launches
 
 
-def lm_check_a(torch, label, cfg, params, n_layers, plen, tol, fault):
+def lm_tokens(torch, cfg, rng, b: int, s: int):
+    """b seeded prompts of s positions on the CPU: [b, s] tokens, or a
+    codebook model's [b, n_cb, s] grid."""
+    shape = (b, cfg.n_codebooks, s) if cfg.n_codebooks else (b, s)
+    return torch.from_numpy(rng.integers(1, cfg.vocab_size, shape))
+
+
+def prefix_rows(torch, cfg, rng, b: int):
+    """b seeded frontend prefixes [b, frontend_tokens, D] f32 on the CPU,
+    N(0, 1)·0.02 as `synth_batch` draws them."""
+    return torch.from_numpy(rng.standard_normal(
+        (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32) * 0.02)
+
+
+def lm_check_a(torch, label, cfg, params, n_layers, plen, tol, fault,
+               fault_ctx=contextlib.nullcontext, prefix=False):
     """Check (a), f32 at full width and `n_layers` layers, the card
     against the CPU on the same weights and LM_A_PROMPTS seeded prompts of
-    `plen` tokens: prefill, then LM_A_DECODE teacher-forced decode steps.
+    `plen` tokens (after the config's `frontend_tokens` prefix rows with
+    `prefix`): prefill, then LM_A_DECODE teacher-forced decode steps.
     The prefill's logits, each decode step's and every cache leaf (after
     prefill and after the last step) within `tol` of max |CPU| each; the
-    planted `fault(caches)` (applied to the card's caches before decode)
-    must break the logits limit at every decode step. Returns (errors,
-    the fault's per step)."""
+    planted `fault(caches)` (applied to the card's caches before decode,
+    the decode steps run inside `fault_ctx()`) must break the logits
+    limit at every decode step (no fault with `fault` None). Returns
+    (errors, the fault's per step)."""
     from repro_torch.models import model as M
     cfg32 = cfg.replace(compute_dtype="float32", n_layers=n_layers)
     card = cut_depth(torch, params, n_layers)
     cpu = weights_to(torch, card, "cpu")
     rng = np.random.default_rng(cfg.n_layers)
-    toks = torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, (LM_A_PROMPTS, plen + LM_A_DECODE)))
-    cache_len = plen + LM_A_DECODE
+    toks = lm_tokens(torch, cfg, rng, LM_A_PROMPTS, plen + LM_A_DECODE)
+    pre = prefix_rows(torch, cfg, rng, LM_A_PROMPTS) if prefix else None
+    ft = pre.shape[1] if prefix else 0
+    cache_len = ft + plen + LM_A_DECODE
     errs = collections.defaultdict(float)
 
     def run(p, dev, planted=None):
         t = toks.to(dev)
-        lg, caches, _ = M.prefill(p, cfg32, t[:, :plen], cache_len)
+        lg, caches, _ = M.prefill(p, cfg32, t[..., :plen], cache_len,
+                                  prefix_embeds=None if pre is None
+                                  else pre.to(dev))
         out = {"prefill": lg[..., :cfg.vocab_size],
                "caches prefill": cache_leaves(cfg32, caches)}
+        ctx = contextlib.nullcontext()
         if planted is not None:
             caches = planted(caches)
-        for i in range(LM_A_DECODE):
-            pos = torch.full((LM_A_PROMPTS,), plen + i, device=dev)
-            lg, caches = M.decode_step(p, cfg32, t[:, plen + i:plen + i + 1],
-                                       pos, caches)
-            out[f"decode {i}"] = lg[:, 0, :cfg.vocab_size]
+            ctx = fault_ctx()
+        with ctx:
+            for i in range(LM_A_DECODE):
+                pos = torch.full((LM_A_PROMPTS,), ft + plen + i, device=dev)
+                lg, caches = M.decode_step(
+                    p, cfg32, t[..., plen + i:plen + i + 1], pos, caches)
+                out[f"decode {i}"] = lg[:, 0][..., :cfg.vocab_size]
         out["caches decode"] = cache_leaves(cfg32, caches)
         return out
 
@@ -5533,60 +5631,66 @@ def lm_check_a(torch, label, cfg, params, n_layers, plen, tol, fault):
             errs["logits"] = max(errs["logits"],
                                  rel_dist(torch, got[key], ref[key]))
     del got
-    bad = run(card, DEV, fault)
-    fault_errs = [rel_dist(torch, bad[f"decode {i}"], ref[f"decode {i}"])
-                  for i in range(LM_A_DECODE)]
-    del bad, ref, cpu, card
+    fault_errs = []
+    if fault is not None:
+        bad = run(card, DEV, fault)
+        fault_errs = [rel_dist(torch, bad[f"decode {i}"],
+                               ref[f"decode {i}"])
+                      for i in range(LM_A_DECODE)]
+        del bad
+    del ref, cpu, card
     for name, e in errs.items():
         check(e <= tol[name], f"{label} check (a): {name} differs by "
               f"{e:.3e} of max |CPU| > {tol[name]}")
-    check(min(fault_errs) > tol["logits"], f"{label} check (a): the "
-          f"planted fault stays within the logits limit {tol['logits']} "
-          f"at a decode step: {fault_errs}")
+    check(fault is None or min(fault_errs) > tol["logits"], f"{label} "
+          f"check (a): the planted fault stays within the logits limit "
+          f"{tol['logits']} at a decode step: {fault_errs}")
     return dict(errs), fault_errs
 
 
-def lm_check_b(torch, label, cfg, params, bound, fault):
+def lm_check_b(torch, label, cfg, params, bound, fault,
+               fault_ctx=contextlib.nullcontext):
     """Check (b), f32 on the card at full depth: prefill LM_B_PROMPTS
     seeded prompts of LM_B_PROMPT tokens, LM_B_STEPS greedy decode steps,
     then a teacher-forced `forward` over prompt + generated tokens; every
     step's logits within `bound` of max |forward| at that position. The
-    decode steps again from `fault(caches after prefill)` on the same
-    tokens must exceed the bound at every step. Returns (per-step
-    errors, the fault's)."""
+    decode steps again from `fault(caches after prefill)`, inside
+    `fault_ctx()`, on the same tokens must exceed the bound at every
+    step. Returns (per-step errors, the fault's)."""
     from repro_torch.models import model as M
     cfg32 = cfg.replace(compute_dtype="float32")
     rng = np.random.default_rng(cfg.n_layers + 1)
     b, plen = LM_B_PROMPTS, LM_B_PROMPT
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
-                                         (b, plen))).to(DEV)
+    toks = lm_tokens(torch, cfg, rng, b, plen).to(DEV)
     cache_len = plen + LM_B_STEPS
     lg, caches, _ = M.prefill(params, cfg32, toks, cache_len)
-    tok = torch.argmax(lg[:, -1, :cfg.vocab_size], -1)
+    tok = torch.argmax(lg[:, -1][..., :cfg.vocab_size], -1)
     del lg
     start = caches
     gen, steps = [], []
     for i in range(LM_B_STEPS):
         gen.append(tok)
         pos = torch.full((b,), plen + i, device=DEV)
-        lg, caches = M.decode_step(params, cfg32, tok[:, None], pos, caches)
-        steps.append(lg[:, 0, :cfg.vocab_size])
+        lg, caches = M.decode_step(params, cfg32, tok[..., None], pos,
+                                   caches)
+        steps.append(lg[:, 0][..., :cfg.vocab_size])
         tok = torch.argmax(steps[-1], -1)
-    gen = torch.stack(gen, 1)
+    gen = torch.stack(gen, -1)
     del caches
-    full, _ = M.forward(params, cfg32, torch.cat([toks, gen], 1))
-    ref = full[:, plen:, :cfg.vocab_size]
+    full, _ = M.forward(params, cfg32, torch.cat([toks, gen], -1))
+    ref = full[:, plen:][..., :cfg.vocab_size]
     del full
     errs = [rel_dist(torch, s, ref[:, i]) for i, s in enumerate(steps)]
     caches = fault(start)
     del start
     fault_errs = []
-    for i in range(LM_B_STEPS):
-        pos = torch.full((b,), plen + i, device=DEV)
-        lg, caches = M.decode_step(params, cfg32, gen[:, i:i + 1], pos,
-                                   caches)
-        fault_errs.append(rel_dist(torch, lg[:, 0, :cfg.vocab_size],
-                                   ref[:, i]))
+    with fault_ctx():
+        for i in range(LM_B_STEPS):
+            pos = torch.full((b,), plen + i, device=DEV)
+            lg, caches = M.decode_step(params, cfg32, gen[..., i:i + 1],
+                                       pos, caches)
+            fault_errs.append(rel_dist(torch, lg[:, 0][..., :cfg.vocab_size],
+                                       ref[:, i]))
     del caches, ref
     check(max(errs) <= bound, f"{label} check (b): decode differs from "
           f"the teacher-forced forward by {max(errs):.3e} of max "
@@ -5597,11 +5701,13 @@ def lm_check_b(torch, label, cfg, params, bound, fault):
 
 
 def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
-             b_bound, b_fault):
+             b_bound, b_fault, a_ctx=contextlib.nullcontext,
+             b_ctx=contextlib.nullcontext):
     """One arch at full width and depth: seeded f32 parameters with a
     bf16 copy drawn on the card, the served run (`lm_served`), then
-    checks (a) and (b) with their planted faults. Returns (launches,
-    report)."""
+    checks (a) and (b) with their planted faults (a cache transform run
+    before the faulted decode steps, and a context they run in). Returns
+    (launches, report)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     label = arch
@@ -5612,12 +5718,11 @@ def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
     n_params = sum(p.numel() for p in params.parameters())
     reckoned = reckon_params(cfg)
     rng = np.random.default_rng(seed + 24)
-    toks = torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEV)
+    toks = lm_tokens(torch, cfg, rng, LM_BATCH, LM_PROMPT).to(DEV)
     # warm-up: cuBLAS's first calls, outside the timing
-    M.decode_step(params, cfg, toks[:, :1],
+    M.decode_step(params, cfg, toks[..., :1],
                   torch.full((LM_BATCH,), 64, device=DEV),
-                  M.prefill(params, cfg, toks[:, :64], 64 + 1)[1])
+                  M.prefill(params, cfg, toks[..., :64], 64 + 1)[1])
     torch.cuda.synchronize()
     weights_gb = sum(t.numel() * t.element_size() for t in
                      params.parameters()) / 1e9 + sum(
@@ -5659,7 +5764,7 @@ def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
 
     t0 = time.perf_counter()
     a_errs, a_fault_errs = lm_check_a(torch, label, cfg, params, a_layers,
-                                      a_prompt, a_tol, a_fault)
+                                      a_prompt, a_tol, a_fault, a_ctx)
     print(f"{label} check (a): f32, {a_layers} layers, {LM_A_PROMPTS} x "
           f"{a_prompt} tokens + {LM_A_DECODE} decode steps, card vs CPU, "
           f"max |card - CPU| / max |CPU|: "
@@ -5672,7 +5777,7 @@ def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
 
     t0 = time.perf_counter()
     b_errs, b_fault_errs = lm_check_b(torch, label, cfg, params, b_bound,
-                                      b_fault)
+                                      b_fault, b_ctx)
     print(f"{label} check (b): f32, full depth, {LM_B_PROMPTS} x "
           f"{LM_B_PROMPT} tokens + {LM_B_STEPS} decode steps against the "
           f"teacher-forced forward, max |decode - forward| / max |forward| "
@@ -5747,6 +5852,326 @@ def mla_phase(torch, seed: int):
                     MLA_B_TOL, functools.partial(latent_one_late, torch, cfg))
 
 
+# ---------------------------------------------------------------------------
+# phases 11-13: the last four archs
+# ---------------------------------------------------------------------------
+
+# Phase 11: the dense GQA archs behind the paged engine at full width, as
+# phase 8 serves the MoE archs (`engine_serve`: 16 slots, 1,024 pages of
+# 16 tokens, phase 4's trace cut to 16 requests, checks (a) and (b)), the
+# trace drawn over each arch's own vocabulary: qwen1.5-110b at 4 of 80
+# layers (~47.5 GB at 6 B a parameter: 14.9 GB of embedding and head,
+# 8.15 GB a layer), llama3-405b at 2 of 126 (~63.5 GB: 25.2 + 19.1 a
+# layer) and llava-next-mistral-7b at full depth (32 layers, ~43.5 GB),
+# text only (the reference's engine takes no prefix). Then paged_attention
+# at each decode shape: G 8, 16 and 4 over 8 KV heads. llava goes last:
+# phase 12 reuses its weights
+DENSE_ARCHS = (("qwen1.5-110b", 4), ("llama3-405b", 2),
+               ("llava-next-mistral-7b", 32))
+# Phase 12: llava's frontend prefix. `prefill_32k` cut to 8 sequences of
+# 4,096 positions (`synth_batch`: 1,152 prefix rows + 2,944 text tokens)
+# through `make_serve_prefill`, then 32 steps of `make_serve_decode`, exec
+# mode gpu, no kernel on the path (the reference's plain attention).
+# Check (a) at 2 layers on 2 prompts of 1,152 rows + 128 tokens (the CPU
+# runs them); check (b) at full depth on 2 prompts of 1,152 rows + 512
+# tokens and 8 steps, against a teacher-forced `forward` with the prefix;
+# its planted faults: the prefix dropped, and the prefix's positions one
+# later
+PREFIX_ARCH = "llava-next-mistral-7b"
+PREFIX_BATCH = 8
+PREFIX_SEQ = 4096
+PREFIX_A_LAYERS = 2
+PREFIX_A_TEXT = 128
+PREFIX_B_TEXT = 512
+PREFIX_FAULTS = ("prefix dropped", "prefix positions one late")
+# Phase 13: musicgen-medium at full width and depth (48 layers, 1.837 B
+# parameters) through `lm_phase`: 8 x 4,096 frames of 4 codebooks, 32
+# decode steps, no kernel on the path. Check (a) at 4 layers on 2 x
+# 1,024 frames; the planted faults: codebook 0's embedding left out of
+# the sum (a), the head's codebook slices rolled by one (b)
+MUSIC_ARCH = "musicgen-medium"
+MUSIC_A_LAYERS = 4
+MUSIC_A_PROMPT = 1024
+# The limits of checks (a) and (b) are the first readings on an NVIDIA
+# H100 80GB HBM3 at its 700 W limit, with margin, as phases 9-10's:
+# llava's / musicgen's (a) 1.2e-3 / 1.8e-3 of max |CPU| on the logits
+# (the attention operands are rounded to bf16, and an f32 projection
+# summed in another order can land on the other side of a rounding
+# point, as MLA's 1.3e-3) and 5.7e-3..6.1e-3 on the bf16 k / v caches
+# (one bf16 step at an element near the largest: two steps are allowed);
+# (b) 8.2e-4..1.2e-3 / 5.3e-4..6.4e-4 (the contiguous decode rounds q and
+# the softmax weights to bf16 where `forward` does not). The planted
+# faults read 1.3..1.6 (prefix dropped), 0.19..0.23 (prefix positions
+# one late), 0.59..0.81 (a codebook left out) and 1.2..1.6 (head rolled)
+PREFIX_A_TOL = {"logits": 5e-3, "dense.k": 2 ** -6, "dense.v": 2 ** -6}
+PREFIX_B_TOL = 5e-3
+MUSIC_A_TOL = {"logits": 5e-3, "dense.k": 2 ** -6, "dense.v": 2 ** -6}
+MUSIC_B_TOL = 5e-3
+
+
+def dense_phase(torch, seed: int):
+    """Phase 11: each of DENSE_ARCHS through `engine_serve`, the card
+    freed between them, each arch's paged_attention row at its decode
+    shape. Returns (launches summed, (the rows, llava's parameters))."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import traffic
+    launches, rows, params = collections.Counter(), [], None
+    for arch, n_layers in DENSE_ARCHS:
+        cfg = get_config(arch).replace(n_layers=n_layers)
+        trace = traffic.make_trace(seed, **dict(MOE_TRACE,
+                                                vocab=cfg.vocab_size))
+        more, _, params = engine_serve(torch, arch, cfg, seed, trace)
+        launches.update(more)
+        if arch != PREFIX_ARCH:
+            params = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        rows.append(paged_kernel_row(torch, arch, seed,
+                                     more.get("paged_attention", 0)))
+    return dict(launches), (rows, params)
+
+
+def prefix_served(torch, cfg, params, seed: int):
+    """The served prefix run (PREFIX_*): the batch from `synth_batch`,
+    `make_serve_prefill` at cache_len PREFIX_SEQ + LM_NEW, then LM_NEW
+    greedy `make_serve_decode` steps; the launch counts set to 0 just
+    before and read just after, and required to stay 0. Checks the
+    batch's shapes, finite logits, tokens in the vocabulary, the caches
+    against `init_caches` and their bytes against the reckoning. Returns
+    the report."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.train.step import make_serve_decode, make_serve_prefill
+    label = f"{PREFIX_ARCH} prefix"
+    ft = cfg.frontend_tokens
+    shape = dataclasses.replace(SHAPES["prefill_32k"], seq_len=PREFIX_SEQ,
+                                global_batch=PREFIX_BATCH)
+    batch = synth_batch(cfg, shape, seed, 0, device=DEV)
+    b = PREFIX_BATCH
+    check(tuple(batch["tokens"].shape) == (b, PREFIX_SEQ - ft)
+          and tuple(batch["prefix_embeds"].shape) == (b, ft, cfg.d_model)
+          and batch["prefix_embeds"].dtype == torch.float32,
+          f"{label}: synth_batch's shapes")
+    cache_len = PREFIX_SEQ + LM_NEW
+    prefill = make_serve_prefill(cfg, cache_len)
+    decode = make_serve_decode(cfg)
+    # warm-up: cuBLAS's first calls at these shapes, outside the timing
+    warm = {"tokens": batch["tokens"][:, :64],
+            "prefix_embeds": batch["prefix_embeds"][:, :64]}
+    decode(params, batch["tokens"][:, :1], torch.full((b,), 128, device=DEV),
+           make_serve_prefill(cfg, 129)(params, warm)[1])
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    last, caches = prefill(params, batch)
+    tok = torch.argmax(last[:, :cfg.vocab_size], -1)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    finite = bool(torch.isfinite(last[:, :cfg.vocab_size]).all())
+    gen = [tok]
+    t0 = time.perf_counter()
+    for i in range(LM_NEW):
+        pos = torch.full((b,), PREFIX_SEQ + i, device=DEV)
+        lg, caches = decode(params, tok[:, None], pos, caches)
+        finite = finite and bool(torch.isfinite(lg[:, :cfg.vocab_size]).all())
+        tok = torch.argmax(lg[:, :cfg.vocab_size], -1)
+        gen.append(tok)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen = torch.stack(gen, -1)
+    print(f"{label}: prefill {b} x ({ft} prefix rows + {PREFIX_SEQ - ft} "
+          f"tokens) {t_pre:.3f} s, {LM_NEW} decode steps {t_dec:.3f} s, "
+          f"launches {json.dumps(launches)}", flush=True)
+    check(not launches, f"{label}: kernels launched on a path that reaches "
+          f"none: {launches}")
+    check(finite, f"{label}: finite logits")
+    check(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab_size,
+          f"{label}: tokens in the vocabulary")
+    (want,) = M.init_caches(params, cfg, b, cache_len)
+    (got,) = caches
+    check(list(got) == list(want) and all(
+        got[n].shape == want[n].shape and got[n].dtype == want[n].dtype
+        for n in want), f"{label}: caches against init_caches")
+    state = sum(t.numel() * t.element_size() for t in got.values()) / b
+    check(state == reckon_state_bytes(cfg, cache_len),
+          f"{label}: decode state bytes differ from the reckoning")
+    del caches, want, got, batch
+    return dict(prefill_tokens_per_s=b * PREFIX_SEQ / t_pre, prefill_s=t_pre,
+                decode_tokens_per_s=b * LM_NEW / t_dec,
+                decode_ms_per_step=1e3 * t_dec / LM_NEW, peak_gib=peak,
+                state_bytes_per_seq=state)
+
+
+def prefix_check_b(torch, cfg, params, bound):
+    """Check (b), f32 on the card at full depth: prefill LM_B_PROMPTS
+    seeded prompts of PREFIX_B_TEXT tokens after their frontend prefix,
+    LM_B_STEPS greedy decode steps, then a teacher-forced `forward` with
+    the prefix over prompt + generated tokens; every step's logits within
+    `bound` of max |forward|. The decode steps again after each of
+    PREFIX_FAULTS' prefills must exceed the bound at every step. Returns
+    (per-step errors, {fault: per-step errors})."""
+    from repro_torch.models import model as M
+    cfg32 = cfg.replace(compute_dtype="float32")
+    rng = np.random.default_rng(cfg.n_layers + 1)
+    b, plen = LM_B_PROMPTS, PREFIX_B_TEXT
+    toks = lm_tokens(torch, cfg, rng, b, plen).to(DEV)
+    pre = prefix_rows(torch, cfg, rng, b).to(DEV)
+    ft = cfg.frontend_tokens
+    cache_len = ft + plen + LM_B_STEPS
+
+    def fed(caches, first):
+        """The logits of LM_B_STEPS decode steps fed `gen` from position
+        `first`."""
+        out = []
+        for i in range(LM_B_STEPS):
+            pos = torch.full((b,), first + i, device=DEV)
+            lg, caches = M.decode_step(params, cfg32, gen[:, i:i + 1], pos,
+                                       caches)
+            out.append(lg[:, 0, :cfg.vocab_size])
+        return out
+
+    lg, caches, _ = M.prefill(params, cfg32, toks, cache_len,
+                              prefix_embeds=pre)
+    first_tok = torch.argmax(lg[:, -1, :cfg.vocab_size], -1)
+    del lg
+    # the greedy tokens: the prefill's argmax, then each step's
+    steps, gen = [], [first_tok]
+    for i in range(LM_B_STEPS):
+        pos = torch.full((b,), ft + plen + i, device=DEV)
+        lg, caches = M.decode_step(params, cfg32, gen[-1][:, None], pos,
+                                   caches)
+        steps.append(lg[:, 0, :cfg.vocab_size])
+        gen.append(torch.argmax(steps[-1], -1))
+    gen = torch.stack(gen[:-1], -1)
+    del caches
+    full, _ = M.forward(params, cfg32, torch.cat([toks, gen], -1),
+                        prefix_embeds=pre)
+    ref = full[:, ft + plen:, :cfg.vocab_size]
+    del full
+    errs = [rel_dist(torch, s, ref[:, i]) for i, s in enumerate(steps)]
+    faults = {}
+    for name in PREFIX_FAULTS:
+        if name == "prefix dropped":
+            _, caches, _ = M.prefill(params, cfg32, toks, plen + LM_B_STEPS)
+            first = plen
+        else:
+            pos = torch.arange(ft + plen, device=DEV)
+            pos = torch.where(pos < ft, pos + 1, pos)[None].expand(b, -1)
+            _, caches, _ = M.prefill(params, cfg32, toks, cache_len,
+                                     positions=pos, prefix_embeds=pre)
+            first = ft + plen
+        faults[name] = [rel_dist(torch, s, ref[:, i])
+                        for i, s in enumerate(fed(caches, first))]
+        del caches
+    del ref
+    check(max(errs) <= bound, f"{PREFIX_ARCH} prefix check (b): decode "
+          f"differs from the teacher-forced forward by {max(errs):.3e} of "
+          f"max |forward| > {bound}")
+    for name, fe in faults.items():
+        check(min(fe) > bound, f"{PREFIX_ARCH} prefix check (b): the "
+              f"planted fault '{name}' stays within {bound} at a step: {fe}")
+    return errs, faults
+
+
+def prefix_phase(torch, seed: int, params):
+    """Phase 12: llava's frontend prefix on phase 11's llava weights: the
+    served run (`prefix_served`), check (a) at PREFIX_A_LAYERS layers
+    (`lm_check_a` with the prefix) and check (b) at full depth
+    (`prefix_check_b`). Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(PREFIX_ARCH)
+    label = f"{PREFIX_ARCH} prefix"
+    params.load_compute_copy(cfg.compute_dtype)
+    report = prefix_served(torch, cfg, params, seed)
+    print(f"{label} prefill: {report['prefill_tokens_per_s']:.1f} "
+          f"positions/s ({PREFIX_BATCH * PREFIX_SEQ} in "
+          f"{report['prefill_s']:.3f} s); decode: "
+          f"{report['decode_tokens_per_s']:.1f} tokens/s, "
+          f"{report['decode_ms_per_step']:.3f} ms/step; peak "
+          f"{report['peak_gib']:.2f} GiB allocated; decode state "
+          f"{report['state_bytes_per_seq']:.0f} B a sequence at cache_len "
+          f"{PREFIX_SEQ + LM_NEW} (the reckoning's)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a_errs, _ = lm_check_a(torch, label, cfg, params, PREFIX_A_LAYERS,
+                           PREFIX_A_TEXT, PREFIX_A_TOL, None, prefix=True)
+    print(f"{label} check (a): f32, {PREFIX_A_LAYERS} layers, "
+          f"{LM_A_PROMPTS} x ({cfg.frontend_tokens} prefix rows + "
+          f"{PREFIX_A_TEXT} tokens) + {LM_A_DECODE} decode steps, card vs "
+          f"CPU, max |card - CPU| / max |CPU|: "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in a_errs.items()})
+          + f" (limits {json.dumps(PREFIX_A_TOL)}) "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b_errs, faults = prefix_check_b(torch, cfg, params, PREFIX_B_TOL)
+    print(f"{label} check (b): f32, full depth, {LM_B_PROMPTS} x "
+          f"({cfg.frontend_tokens} prefix rows + {PREFIX_B_TEXT} tokens) + "
+          f"{LM_B_STEPS} decode steps against the teacher-forced forward "
+          f"with the prefix, max |decode - forward| / max |forward| per "
+          f"step: " + json.dumps([float(f"{v:.3e}") for v in b_errs])
+          + f" (bound {PREFIX_B_TOL}); planted faults: "
+          + json.dumps({k: [float(f"{v:.3e}") for v in fe]
+                        for k, fe in faults.items()})
+          + f" ({time.perf_counter() - t0:.3f} s)", flush=True)
+    report.update(a=a_errs, b=b_errs, b_faults=faults)
+    return {}, report
+
+
+def keep_caches(caches):
+    """No cache fault (musicgen's planted faults are in the model)."""
+    return caches
+
+
+@contextlib.contextmanager
+def codebook_left_out(torch, cfg):
+    """Planted fault: codebook 0's embedding left out of the sum."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import dtype_of
+    embed = M._embed
+
+    def faulty(p, c, tokens, prefix_embeds=None):
+        t = tokens.long()
+        return sum(p.embed[i][t[:, i]] for i in range(1, c.n_codebooks)).to(
+            dtype_of(c.compute_dtype))
+    M._embed = faulty
+    try:
+        yield
+    finally:
+        M._embed = embed
+
+
+@contextlib.contextmanager
+def head_rolled(torch):
+    """Planted fault: the head's codebook slices rolled by one (codebook
+    c's logits from codebook c - 1's columns)."""
+    from repro_torch.models import model as M
+    head = M._head
+    M._head = lambda p, c, x: head(p, c, x).roll(1, dims=-2)
+    try:
+        yield
+    finally:
+        M._head = head
+
+
+def music_phase(torch, seed: int):
+    """Phase 13: musicgen-medium at full width and depth (48 layers, 4
+    codebooks). Returns (launches, report)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MUSIC_ARCH)
+    return lm_phase(torch, seed, MUSIC_ARCH, MUSIC_A_LAYERS, MUSIC_A_PROMPT,
+                    MUSIC_A_TOL, keep_caches, MUSIC_B_TOL, keep_caches,
+                    functools.partial(codebook_left_out, torch, cfg),
+                    functools.partial(head_rolled, torch))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5814,6 +6239,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         done()
 
+    done = phase("11 dense serving")
+    more, (dense_rows, llava) = dense_phase(torch, args.seed)
+    for k, v in more.items():
+        launches[k] = launches.get(k, 0) + v
+    done()
+    done = phase("12 llava prefix")
+    prefix_phase(torch, args.seed, llava)
+    del llava
+    gc.collect()
+    torch.cuda.empty_cache()
+    done()
+    done = phase("13 musicgen")
+    music_phase(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done()
+
     out = []
     for name, source, replaces in KERNELS:
         r = rows[name]
@@ -5823,10 +6265,10 @@ def main() -> int:
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    out.extend(moe_rows)
+    out.extend(moe_rows + dense_rows)
     print(card_line(), flush=True)
     print("calls by shape over the main path, serving, hymba, the "
-          "sharded store and the MoE serving: "
+          "sharded store and the MoE and dense serving: "
           + json.dumps(calls_by_shape(SHAPE_LAUNCHES)), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

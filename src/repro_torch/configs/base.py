@@ -3,8 +3,9 @@
 `ModelConfig` carries the fields of the reference's `ModelConfig` that the
 ported slices read, under the same names and with the same defaults (the
 GQA transformer family the serving engine drives, its MoE variant,
-minicpm3's MLA, hymba's hybrid attention + mamba block and xLSTM's
-mLSTM / sLSTM blocks); `StoreConfig` carries the kvstore fields.
+minicpm3's MLA, hymba's hybrid attention + mamba block, xLSTM's
+mLSTM / sLSTM blocks, and the frontend stubs: musicgen's codebooks and
+llava's prefix embeddings); `StoreConfig` carries the kvstore fields.
 `ShapeConfig` and `SHAPES` are the reference's assigned input-shape
 cells.
 """
@@ -17,7 +18,7 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | ssm | hybrid
+    family: str                      # dense|moe|ssm|hybrid|vlm|audio
     n_layers: int = 0
     d_model: int = 0
     n_heads: int = 0
@@ -56,7 +57,10 @@ class ModelConfig:
     ssm_expand: int = 2
     slstm_every: int = 0             # xlstm: every k-th block is sLSTM
     block_pattern: str = "transformer"  # transformer | xlstm | hybrid
-    n_codebooks: int = 0
+
+    # --- modality frontends (stubs, as the reference's) ---
+    n_codebooks: int = 0             # musicgen's EnCodec codebooks
+    frontend_tokens: int = 0         # vlm / audio: precomputed prefix rows
 
     # --- numerics / structure ---
     norm_eps: float = 1e-6

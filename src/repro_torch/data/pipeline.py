@@ -41,8 +41,10 @@ from repro_torch.core.ringqueue import pop_one, push_one, queue_init
 def synth_batch(cfg, shape, seed: int, step: int, shard: int = 0,
                 n_shards: int = 1, *, device="cuda"):
     """Pure function of (seed, step, shard): the replayable batch, on
-    `device`. (The reference's frontend prefixes, `frontend_tokens`, wait
-    for the vlm and audio configs.)"""
+    `device`. A frontend's `frontend_tokens` ft take the first ft of the
+    seq_len positions: tokens [B, S - ft], labels [B, S] with ft zeros in
+    front, the loss mask zero over them, and `prefix_embeds` [B, ft, D]
+    f32, drawn after the tokens, as the reference draws them."""
     dev = resolve_device(device)
     rng = np.random.default_rng(
         np.random.SeedSequence([seed, step, shard, n_shards]))
@@ -59,10 +61,19 @@ def synth_batch(cfg, shape, seed: int, step: int, shard: int = 0,
                 "labels": put(toks[..., 1:], torch.int32),
                 "loss_mask": torch.ones((b, s), dtype=torch.float32,
                                         device=dev)}
-    toks = rng.integers(0, cfg.vocab_size, (b, s + 1))
-    return {"tokens": put(toks[:, :-1], torch.int32),
-            "labels": put(toks[:, 1:], torch.int32),
-            "loss_mask": torch.ones((b, s), dtype=torch.float32, device=dev)}
+    ft = cfg.frontend_tokens
+    toks = rng.integers(0, cfg.vocab_size, (b, s - ft + 1))
+    mask = torch.ones((b, s), dtype=torch.float32, device=dev)
+    mask[:, :ft] = 0.0
+    batch = {"tokens": put(toks[:, :-1], torch.int32),
+             "labels": put(np.pad(toks[:, 1:], ((0, 0), (ft, 0))),
+                           torch.int32),
+             "loss_mask": mask}
+    if ft:
+        emb = rng.standard_normal((b, ft, cfg.d_model)).astype(
+            np.float32) * 0.02
+        batch["prefix_embeds"] = put(emb, torch.float32)
+    return batch
 
 
 class PrefetchPipeline:

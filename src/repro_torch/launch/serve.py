@@ -35,12 +35,15 @@ def main(argv=None):
     from repro_torch.core.layout import resolve_device
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
+    from repro_torch.serving.paged_decode import CODEBOOK_REFUSAL
 
     cfg = get_reduced(args.arch).replace(head_dim=PAGED_HEAD_DIM)
     if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
         raise SystemExit(f"{args.arch}: paged engine serves GQA transformer "
                          f"families; recurrent archs decode via model state "
                          f"(see launch/dryrun decode cells)")
+    if cfg.n_codebooks:
+        raise SystemExit(f"{args.arch}: {CODEBOOK_REFUSAL}")
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
     # the engine's kernels run on the card; the CPU takes the plain path

@@ -20,6 +20,13 @@ and "kpe"), and for xLSTM seven mlstm dicts and one slstm dict of
   decode_step        one token against the caches
   cross_entropy      the training loss over `forward`'s logits
 
+The modality frontends are stubs, as the reference's: `forward` and
+`prefill` take `prefix_embeds` [B, ft, D], precomputed patch or frame
+embeddings put before the token embeddings (llava), and a codebook model
+(musicgen, `cfg.n_codebooks`) takes [B, n_cb, S] token grids, sums the
+codebooks' embeddings and gives [B, S, n_cb, V] logits from one head of
+n_cb·Vp columns.
+
 With `cfg.remat` and grad enabled, `forward` keeps only each layer's
 input and recomputes the layer in the backward pass (the reference's
 `jax.checkpoint` of a layer group).
@@ -40,32 +47,49 @@ from repro_torch.models.params import Weights
 
 class LM(Weights):
     """embed, final_norm, blocks (one `Block` per layer) and, untied,
-    lm_head."""
+    lm_head. A codebook model's embed is [n_cb, Vp, D] and its lm_head
+    [D, n_cb·Vp]."""
     MATMUL = ("embed", "lm_head")
 
 
 def init_params(cfg, generator: torch.Generator) -> LM:
     """Random parameters in `param_dtype` from `generator` (on the
     generator's device): matmul weights N(0,1)/sqrt(d_in), embeddings
-    N(0,1)*0.02, norms one, as the reference draws them."""
-    if cfg.n_codebooks:
-        raise NotImplementedError("codebook models are not ported yet")
+    N(0,1)*0.02, norms one, as the reference draws them; a codebook
+    model's n_cb embedding tables and its head drawn as one [n_cb·Vp, D]
+    table, transposed."""
     blocks = nn.ModuleList(init_block(generator, cfg, kind)
                            for kind in _layer_kinds(cfg))
     dev = generator.device
+    vp, d, pt = cfg.padded_vocab, cfg.d_model, cfg.param_dtype
     p = dict(blocks=blocks,
-             final_norm=torch.ones(cfg.d_model, dtype=dtype_of(
-                 cfg.param_dtype), device=dev),
-             embed=embed_init(generator, cfg.padded_vocab, cfg.d_model,
-                              cfg.param_dtype))
-    if not cfg.tie_embeddings:
-        p["lm_head"] = embed_init(generator, cfg.padded_vocab, cfg.d_model,
-                                  cfg.param_dtype).T.contiguous()
+             final_norm=torch.ones(d, dtype=dtype_of(pt), device=dev))
+    if cfg.n_codebooks:
+        p["embed"] = torch.stack([embed_init(generator, vp, d, pt)
+                                  for _ in range(cfg.n_codebooks)])
+        p["lm_head"] = embed_init(generator, cfg.n_codebooks * vp, d,
+                                  pt).T.contiguous()
+    else:
+        p["embed"] = embed_init(generator, vp, d, pt)
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(generator, vp, d, pt).T.contiguous()
     return LM(**p)
 
 
-def _embed(p: LM, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p.w("embed", cfg.compute_dtype)[tokens.long()]
+def _embed(p: LM, cfg, tokens: torch.Tensor,
+           prefix_embeds=None) -> torch.Tensor:
+    """Token embeddings in the compute dtype: a codebook grid [B, n_cb, S]
+    sums its codebooks' rows in the parameter dtype and then casts, as
+    the reference does; `prefix_embeds` [B, ft, D], cast, goes first."""
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        x = sum(p.embed[c][tokens[:, c]] for c in range(cfg.n_codebooks))
+        x = x.to(dtype_of(cfg.compute_dtype))
+    else:
+        x = p.w("embed", cfg.compute_dtype)[tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(p: LM, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -73,6 +97,9 @@ def _head(p: LM, cfg, x: torch.Tensor) -> torch.Tensor:
     tied = getattr(p, "lm_head", None) is None
     w = p.w("embed", ct).T if tied else p.w("lm_head", ct)
     logits = (x @ w).float()
+    if cfg.n_codebooks:
+        logits = logits.reshape(*logits.shape[:2], cfg.n_codebooks,
+                                cfg.padded_vocab)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(logits.shape[-1], device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
@@ -124,10 +151,11 @@ def init_caches(p: LM, cfg, batch: int, cache_len: int) -> tuple:
                  for kind in block_kinds(cfg))
 
 
-def forward(p: LM, cfg, tokens, positions=None):
+def forward(p: LM, cfg, tokens, positions=None, prefix_embeds=None):
     """Returns (logits, aux); aux is the blocks' summed MoE load-balance
-    loss (0 without experts)."""
-    x = _embed(p, cfg, tokens)
+    loss (0 without experts). The default positions run over the prefix
+    and the tokens."""
+    x = _embed(p, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
@@ -144,10 +172,12 @@ def forward(p: LM, cfg, tokens, positions=None):
     return _head(p, cfg, x), aux
 
 
-def prefill(p: LM, cfg, tokens, cache_len: int, positions=None):
+def prefill(p: LM, cfg, tokens, cache_len: int, positions=None,
+            prefix_embeds=None):
     """Returns (logits, caches, aux), aux summed over the blocks as
-    `forward`'s (the reference's prefill returns 0)."""
-    x = _embed(p, cfg, tokens)
+    `forward`'s (the reference's prefill returns 0). The caches cover the
+    prefix and the tokens."""
+    x = _embed(p, cfg, tokens, prefix_embeds)
     b, s, _ = x.shape
     if positions is None:
         positions = _positions(b, s, 0, x.device)
@@ -186,8 +216,9 @@ def prefill_with_past(p: LM, cfg, tokens, past_k, past_v, cache_len: int):
 
 
 def decode_step(p: LM, cfg, token, pos, caches):
-    """token: [B,1]; pos: [B] int; caches as `prefill` returns them.
-    Returns (logits [B,1,V], caches')."""
+    """token: [B,1] (a codebook model's [B,n_cb,1]); pos: [B] int; caches
+    as `prefill` returns them. Returns (logits [B,1,V] or [B,1,n_cb,V],
+    caches')."""
     x = _embed(p, cfg, token)
     new = []
     for i, kind, win, bp in _layers(p, cfg):
@@ -200,13 +231,18 @@ def decode_step(p: LM, cfg, token, pos, caches):
 
 def cross_entropy(logits, labels, mask=None):
     """Mean f32 negative log-likelihood of `labels` [B,S] under `logits`
-    [B,S,V], over the positions where the optional [B,S] `mask` is set."""
-    if logits.ndim == 4:
-        raise NotImplementedError("codebook models are not ported yet")
+    [B,S,V], over the positions where the optional [B,S] `mask` is set.
+    Codebook logits [B,S,n_cb,V] take labels [B,n_cb,S]: a position's
+    loss is the mean over its codebooks."""
     logits = logits.float()
+    labels = labels.long()
+    if logits.ndim == 4:
+        labels = labels.transpose(1, 2)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - ll
+    if logits.ndim == 4:
+        nll = torch.mean(nll, dim=-1)
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
     return torch.mean(nll)

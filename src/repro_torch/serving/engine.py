@@ -43,7 +43,8 @@ from repro_torch.models import model as M
 from repro_torch.serving import kvcache as KV
 from repro_torch.serving import prefix_cache as PC
 from repro_torch.serving import scheduler as SCH
-from repro_torch.serving.paged_decode import paged_decode_step
+from repro_torch.serving.paged_decode import (CODEBOOK_REFUSAL,
+                                              paged_decode_step)
 from repro_torch.store import exec as exec_
 from repro_torch.store import obs
 
@@ -74,6 +75,8 @@ class Engine:
                  exec_mode: str | None = None):
         if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
             raise NotImplementedError("the engine serves GQA transformers")
+        if cfg.n_codebooks:
+            raise NotImplementedError(CODEBOOK_REFUSAL)
         self.cfg = cfg
         self.params = params
         params.load_compute_copy(cfg.compute_dtype)

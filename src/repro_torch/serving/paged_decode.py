@@ -25,6 +25,16 @@ from repro_torch.models.model import _head
 from repro_torch.serving.kvcache import PagedKV, decode_write_lanes
 from repro_torch import exec as exec_
 
+# a codebook model's tokens are [B, n_cb, S] grids and its embed a table a
+# codebook: neither the engine's [S] prompts nor the paged step's embed
+# gather carry them, and the reference's engine fails on them too
+# (`models/model.py`'s `_embed` indexes tokens[:, c, :] of a [1, S]
+# prompt; `paged_decode_step` gathers embed[tokens] from [n_cb, Vp, D])
+CODEBOOK_REFUSAL = ("the paged engine serves one token stream a request; "
+                    "a codebook model (n_codebooks > 0, musicgen) decodes "
+                    "[B, n_codebooks, 1] grids through models.model's "
+                    "prefill and decode_step")
+
 
 def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
                       mode: str | None = None):
@@ -34,6 +44,8 @@ def paged_decode_step(params, cfg, tokens, slots, kv: PagedKV, mask=None,
     (logits [B, V] f32, kv) with kv's pools updated in place."""
     if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
         raise NotImplementedError("paged decode: GQA transformer families")
+    if cfg.n_codebooks:
+        raise NotImplementedError(CODEBOOK_REFUSAL)
     b = tokens.shape[0]
     if mask is None:
         mask = torch.ones(b, dtype=torch.bool, device=tokens.device)

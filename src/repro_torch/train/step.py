@@ -23,11 +23,10 @@ AUX_WEIGHT = 0.01
 
 
 def loss_fn(params, cfg, batch):
-    """(loss + AUX_WEIGHT * aux, (loss, aux)) of one batch."""
-    if batch.get("prefix_embeds") is not None:
-        raise NotImplementedError("frontend prefix embeddings are not "
-                                  "ported yet")
-    logits, aux = M.forward(params, cfg, batch["tokens"])
+    """(loss + AUX_WEIGHT * aux, (loss, aux)) of one batch; a frontend's
+    `prefix_embeds` go before the tokens."""
+    logits, aux = M.forward(params, cfg, batch["tokens"],
+                            prefix_embeds=batch.get("prefix_embeds"))
     loss = M.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
     return loss + AUX_WEIGHT * aux, (loss, aux)
 
@@ -87,17 +86,17 @@ def make_train_step(cfg, *, lr_peak=3e-4, warmup=100, total_steps=10000,
 
 def make_serve_prefill(cfg, cache_len: int):
     def serve_prefill(params, batch):
-        if batch.get("prefix_embeds") is not None:
-            raise NotImplementedError("frontend prefix embeddings are not "
-                                      "ported yet")
         with torch.no_grad():
-            logits, caches, _ = M.prefill(params, cfg, batch["tokens"],
-                                          cache_len)
+            logits, caches, _ = M.prefill(
+                params, cfg, batch["tokens"], cache_len,
+                prefix_embeds=batch.get("prefix_embeds"))
         return logits[:, -1], caches
     return serve_prefill
 
 
 def make_serve_decode(cfg):
+    """serve_decode(params, token, pos, caches) -> (logits [B, V], or a
+    codebook model's [B, n_cb, V], caches')."""
     def serve_decode(params, token, pos, caches):
         with torch.no_grad():
             logits, caches = M.decode_step(params, cfg, token, pos, caches)

@@ -61,7 +61,8 @@ def _u64_bits(x) -> np.ndarray:
 
 @pytest.mark.parametrize("arch,seed,step,shard,n_shards", [
     ("qwen3-1.7b", 0, 0, 0, 1), ("qwen3-1.7b", 3, 17, 1, 2),
-    ("hymba-1.5b", 7, 2, 3, 4)])
+    ("hymba-1.5b", 7, 2, 3, 4), ("llava-next-mistral-7b", 0, 0, 0, 1),
+    ("llava-next-mistral-7b", 5, 3, 1, 2), ("musicgen-medium", 2, 1, 0, 1)])
 def test_synth_batch_matches_reference(arch, seed, step, shard, n_shards):
     shape = ShapeConfig("t", seq_len=24, global_batch=8, kind="train")
     want = j_synth_batch(j_get_reduced(arch), shape, seed, step, shard,
@@ -348,7 +349,21 @@ def test_train_matches_reference_train():
                     "--batch", "4", "--device", "cpu"], "final loss"),
     (launch_serve, ["--arch", ARCH, "--requests", "3", "--max-new", "4",
                     "--device", "cpu"], "served 3 requests / 12 tokens; "
-                                        "pool free=64")])
+                                        "pool free=64"),
+    (launch_train, ["--arch", "llava-next-mistral-7b", "--steps", "1",
+                    "--seq", "16", "--batch", "2", "--device", "cpu"],
+     "final loss"),
+    (launch_train, ["--arch", "musicgen-medium", "--steps", "1", "--seq",
+                    "16", "--batch", "2", "--device", "cpu"], "final loss"),
+    (launch_serve, ["--arch", "qwen1.5-110b", "--requests", "2",
+                    "--max-new", "3", "--device", "cpu"],
+     "served 2 requests / 6 tokens; pool free=64"),
+    (launch_serve, ["--arch", "llama3-405b", "--requests", "2",
+                    "--max-new", "3", "--device", "cpu"],
+     "served 2 requests / 6 tokens; pool free=64"),
+    (launch_serve, ["--arch", "llava-next-mistral-7b", "--requests", "2",
+                    "--max-new", "3", "--device", "cpu"],
+     "served 2 requests / 6 tokens; pool free=64")])
 def test_launcher_runs_on_the_cpu(launcher, argv, expect, capsys):
     launcher.main(argv)
     assert expect in capsys.readouterr().out
@@ -358,7 +373,9 @@ def test_launcher_runs_on_the_cpu(launcher, argv, expect, capsys):
     (launch_train, ["--arch", ARCH, "--dryrun"], "no torch counterpart"),
     (launch_serve, ["--arch", ARCH, "--dryrun"], "no torch counterpart"),
     (launch_serve, ["--arch", "hymba-1.5b", "--device", "cpu"],
-     "paged engine serves GQA transformer families")])
+     "paged engine serves GQA transformer families"),
+    (launch_serve, ["--arch", "musicgen-medium", "--device", "cpu"],
+     "a codebook model")])
 def test_launcher_refusals(launcher, argv, match):
     with pytest.raises(SystemExit, match=match):
         launcher.main(argv)

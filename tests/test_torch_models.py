@@ -9,8 +9,8 @@ at the same points and sum in f32, so logits and caches agree to 1e-4
 angles differ). Also: the config against the reference's, the chunked
 causal attention (`attn_block_q` below the sequence), the load-time
 compute-dtype copy, the initializer's shapes, names and scales, and the
-block kinds: xLSTM's and MLA's against the reference's leaves, codebook
-models refused.
+block kinds: xLSTM's, MLA's and the codebook models' against the
+reference's leaves. The configs of all ten archs, full and reduced.
 """
 import dataclasses
 
@@ -22,11 +22,12 @@ import jax.numpy as jnp
 import torch
 
 import repro  # noqa: F401  (enables x64)
+from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced as j_get_reduced
 from repro.models import common as jcommon
 from repro.models import model as JM
-from repro_torch.configs import get_config, get_reduced
+from repro_torch.configs import ARCHS, get_config, get_reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import common as tcommon
 from repro_torch.models import model as TM
@@ -67,23 +68,37 @@ def _close(a, b, tol=TOL):
 # configs
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("arch", J_ARCHS)
 @pytest.mark.parametrize("which", ["full", "reduced"])
-def test_config_matches_reference(which):
-    j = j_get_config(ARCH) if which == "full" else j_get_reduced(ARCH)
-    t = get_config(ARCH) if which == "full" else get_reduced(ARCH)
+def test_config_matches_reference(which, arch):
+    """Every arch of the reference, field for field: the port's fields
+    equal the reference's, and each reference field the port lacks (the
+    XLA-mesh and kvstore knobs) holds its default, so the port loses
+    nothing by lacking it."""
+    j = j_get_config(arch) if which == "full" else j_get_reduced(arch)
+    t = get_config(arch) if which == "full" else get_reduced(arch)
+    port = {f.name for f in dataclasses.fields(t)}
     for f in dataclasses.fields(t):
         assert getattr(t, f.name) == getattr(j, f.name), f.name
+    for f in dataclasses.fields(j):
+        if f.name not in port:
+            assert getattr(j, f.name) == f.default, f.name
     assert t.resolved_head_dim == j.resolved_head_dim
     assert t.padded_vocab == j.padded_vocab
-    if which == "full":    # Qwen/Qwen3-1.7B's config.json
+    if which == "full" and arch == ARCH:    # Qwen/Qwen3-1.7B's config.json
         assert (t.n_layers, t.d_model, t.n_heads, t.n_kv_heads, t.d_ff,
                 t.vocab_size, t.head_dim, t.rope_theta) == (
                     28, 2048, 16, 8, 6144, 151936, 128, 1e6)
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("llama3-405b")
+    """Every arch of the reference is ported, in its order; an unknown
+    name still raises."""
+    assert ARCHS == J_ARCHS
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_config("llama3-406b")
+    with pytest.raises(KeyError, match="unknown architecture"):
+        get_reduced("gpt-2")
     assert get_config("paper-kvstore").store_lanes == 4096
 
 
@@ -252,8 +267,8 @@ def test_init_params_shapes_names_and_scales(params):
 
 
 def test_unported_kinds_raise():
-    """The mlstm, slstm and MLA blocks, once refused, build with the
-    reference's leaf names and shapes; codebook models still raise."""
+    """The mlstm, slstm and MLA blocks and the codebook models, once
+    refused, build with the reference's leaf names and shapes."""
     from repro.models.blocks import init_block as j_init_block
     cfg = get_reduced(ARCH)
     assert block_kinds(cfg) == ["dense"]
@@ -272,5 +287,16 @@ def test_unported_kinds_raise():
         got = {n.replace(".", "/"): tuple(t.shape) for n, t in
                init_block(torch.Generator(), c, kind).named_parameters()}
         assert got == want, kind
-    with pytest.raises(NotImplementedError, match="codebook"):
-        TM.init_params(cfg.replace(n_codebooks=4), torch.Generator())
+    c = get_reduced("musicgen-medium")
+    want = jax.eval_shape(lambda k: JM.init_params(
+        k, j_get_reduced("musicgen-medium")), jax.random.PRNGKey(0))
+    want = {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                     for k in path): tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                want)[0] if not path[0].key == "blocks"}
+    got = {n: tuple(t.shape) for n, t in
+           TM.init_params(c, torch.Generator()).named_parameters()
+           if not n.startswith("blocks.")}
+    assert got == want == {"embed": (2, c.padded_vocab, c.d_model),
+                           "lm_head": (c.d_model, 2 * c.padded_vocab),
+                           "final_norm": (c.d_model,)}

@@ -200,8 +200,16 @@ def test_cross_entropy_matches_reference(masked):
 
 
 def test_cross_entropy_codebooks_not_ported():
-    with pytest.raises(NotImplementedError, match="codebook"):
-        TM.cross_entropy(torch.zeros(1, 2, 3, 4), torch.zeros(1, 3, 2))
+    """Kept under its old name: codebook logits [B, S, n_cb, V] against
+    labels [B, n_cb, S] are ported, the mean over the codebooks as the
+    reference's (tests/test_torch_frontends.py holds them masked too)."""
+    rng = np.random.default_rng(13)
+    logits = (rng.standard_normal((2, 3, 4, 5)) * 4).astype(np.float32)
+    labels = rng.integers(0, 5, (2, 4, 3)).astype(np.int32)
+    want = JM.cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
+    got = TM.cross_entropy(torch.from_numpy(logits),
+                           torch.from_numpy(labels))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,13 @@ main path's own stream; with --serve, where the serving engine's time
 goes; with --hymba, --xlstm or --mla, where hymba-1.5b's,
 xlstm-1.3b's or minicpm3-4b's prefill and decode time goes; with
 --sharded, where the sharded store engine's time goes; with --train,
-where a training step's time goes.
+where a training step's time goes; with --dense ARCH or --musicgen,
+where the last four archs' engine decode and contiguous prefill and
+decode time goes.
 
     python3 tools/torch_store_profile.py [--serve | --hymba | --xlstm |
-                                          --mla | --sharded | --train]
+                                          --mla | --sharded | --train |
+                                          --dense ARCH | --musicgen]
 
 Needs a CUDA card. Builds `chip_smoke.py`'s streams at their default seed
 and runs them in exec mode `gpu` through `StoreEngine`: the KV stream (a
@@ -45,6 +48,15 @@ unprofiled warm-up, with the same columns per prefill and per decode step
 xlstm-1.3b and minicpm3-4b at full width and depth (bf16 compute), one
 prefill of 8 prompts x 4,096 tokens and 8 decode steps (no port kernel
 is on either path).
+
+--dense ARCH profiles one of chip_smoke.py's phase 11 archs
+(qwen1.5-110b, llama3-405b or llava-next-mistral-7b at its depth there)
+behind `Engine` on phase 11's trace: a window of 10 engine steps once
+every request is admitted (decode only, the paged_attention kernel among
+the port's); for llava also phase 12's contiguous prefill of 8 x 4,096
+positions (1,152 prefix rows each) and 8 decode steps. --musicgen
+profiles phase 13: musicgen-medium at full width and depth, one prefill
+of 8 x 4,096 frames of 4 codebooks and 8 decode steps.
 
 --sharded profiles chip_smoke.py's phase 6 cells: det_skiplist and
 tiered3/lru behind the sharded `StoreEngine` on the production mesh
@@ -204,28 +216,39 @@ def serve_profile(torch, cs, exec_) -> None:
           flush=True)
 
 
-def model_profile(torch, exec_, label, cfg, b, p, new, seed) -> None:
-    """One profiled prefill of b prompts x p tokens (cache_len p + new)
-    and HYMBA_DECODE_STEPS profiled decode steps, each after a warm-up;
-    seeded f32 parameters with a compute copy, as chip_smoke draws
-    them."""
+def model_profile(torch, exec_, label, cfg, b, p, new, seed,
+                  params=None) -> None:
+    """One profiled prefill of b prompts x p positions (cache_len p + new;
+    a codebook model's [b, n_cb, p] frames, or `frontend_tokens` prefix
+    rows and p - ft tokens) and HYMBA_DECODE_STEPS profiled decode steps,
+    each after a warm-up; seeded f32 parameters with a compute copy, as
+    chip_smoke draws them, unless `params` are given."""
     import numpy as np
     from repro_torch.models import model as M
-    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    if params is None:
+        params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     params.load_compute_copy(cfg.compute_dtype)
     rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, p))).cuda()
+    ft = cfg.frontend_tokens
+    shape = (b, cfg.n_codebooks, p) if cfg.n_codebooks else (b, p - ft)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, shape)).cuda()
+    pre = None
+    if ft:
+        pre = torch.from_numpy(rng.standard_normal(
+            (b, ft, cfg.d_model)).astype(np.float32) * 0.02).cuda()
     st = {}
 
     def prefill():
-        lg, st["caches"], _ = M.prefill(params, cfg, toks, p + new)
+        lg, st["caches"], _ = M.prefill(params, cfg, toks, p + new,
+                                        prefix_embeds=pre)
         st["tok"], st["pos"] = torch.argmax(lg[:, -1], -1), p
 
     def decode(n):
         for _ in range(n):
             pos = torch.full((b,), st["pos"], device="cuda")
-            lg, st["caches"] = M.decode_step(params, cfg, st["tok"][:, None],
-                                             pos, st["caches"])
+            lg, st["caches"] = M.decode_step(params, cfg,
+                                             st["tok"][..., None], pos,
+                                             st["caches"])
             st["tok"], st["pos"] = torch.argmax(lg[:, 0], -1), st["pos"] + 1
 
     prefill()
@@ -234,6 +257,41 @@ def model_profile(torch, exec_, label, cfg, b, p, new, seed) -> None:
     decode(2)
     report(torch, exec_, lambda: decode(HYMBA_DECODE_STEPS),
            HYMBA_DECODE_STEPS, f"{b} lanes", "step", f"{label} decode")
+
+
+def dense_profile(torch, cs, exec_, arch: str) -> None:
+    """One of chip_smoke's phase 11 archs behind `Engine` (its depth, 16
+    slots, 1,024 pages, the trace over its vocabulary): 10 engine steps
+    profiled once every request is admitted; for llava then phase 12's
+    prefix prefill and decode on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import traffic
+    from repro_torch.serving.engine import Engine
+    layers = dict(cs.DENSE_ARCHS)[arch]
+    cfg = get_config(arch).replace(n_layers=layers)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    trace = traffic.make_trace(0, **dict(cs.MOE_TRACE, vocab=cfg.vocab_size))
+    eng = Engine(cfg, params, max_reqs=cs.MOE_BATCH,
+                 num_pages=cs.MOE_NUM_PAGES, page_size=cs.SERVE_PAGE,
+                 max_pages_per_req=cs.SERVE_PAGES_PER_REQ, exec_mode="gpu")
+    clock = traffic.ticks(eng, trace, max_steps=cs.SERVE_MAX_TICKS)
+    while (len(eng.requests) < len(trace)
+           or any(r.slot < 0 for r in eng.requests.values())):
+        next(clock)
+
+    def run():
+        for _ in range(10):
+            next(clock)
+    report(torch, exec_, run, 10, f"{arch}, {layers} layers", "step",
+           f"{arch} engine decode")
+    for _ in clock:
+        pass
+    del eng
+    torch.cuda.empty_cache()
+    if arch == cs.PREFIX_ARCH:
+        model_profile(torch, exec_, f"{arch} prefix", cfg, cs.PREFIX_BATCH,
+                      cs.PREFIX_SEQ, cs.LM_NEW, 24, params)
 
 
 def train_profile(torch, cs, exec_) -> None:
@@ -294,6 +352,14 @@ def main() -> int:
         else:
             model_profile(torch, exec_, label, get_config(arch),
                           cs.LM_BATCH, cs.LM_PROMPT, cs.LM_NEW, 24)
+        return 0
+    if "--dense" in sys.argv[1:]:
+        dense_profile(torch, cs, exec_,
+                      sys.argv[sys.argv.index("--dense") + 1])
+        return 0
+    if "--musicgen" in sys.argv[1:]:
+        model_profile(torch, exec_, "musicgen", get_config(cs.MUSIC_ARCH),
+                      cs.LM_BATCH, cs.LM_PROMPT, cs.LM_NEW, 24)
         return 0
     if "--train" in sys.argv[1:]:
         train_profile(torch, cs, exec_)
