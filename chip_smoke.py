@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (the KV store, the LLM serving engine,
 hymba-1.5b's prefill and decode, the sharded store, training, the MoE
 family's serving, xlstm-1.3b's and minicpm3-4b's prefill and decode, the
-dense archs' serving, llava's frontend prefix and musicgen's codebooks)
-on one GPU and check it.
+dense archs' serving, llava's frontend prefix and musicgen's codebooks,
+pod-compressed training and the pipeline) on one GPU and check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -287,7 +287,26 @@ is non-zero and no result line is printed):
    steps, no launch; check (a) at 4 layers, its planted fault codebook
    0's embedding left out; check (b), the head's codebook slices rolled
    by one.
-14. The calls by shape of the store kernels over phases 3-6, 8 and 11,
+14. Pods and pipeline. (a) qwen3-1.7b at full width cut to 4 layers,
+   phase 7's 8 x 4,096 tokens a step, on a (2, 4) ("pod", "data") mesh
+   folded onto the card: 3 plain steps and 3 pod-compressed steps
+   (`make_train_step(pod_compress=True)`, the int8 error-feedback
+   exchange of `optim/compress.py`) from one seeded init. Each
+   compressed step: the residuals equal g32 - q * scale bit for bit, the
+   payloads are int8 and P x parameters + P scales a leaf in bytes,
+   every leaf's exchanged mean within sum_p scale_p / (2P) (plus 4 f32
+   ulps) of mean_p(g_p + r_p), and the planted fault (the sum over pods
+   in place of the mean) must break that; losses within 5% of the plain
+   ones; a 4th compressed step runs unrecorded for the peak without the
+   checks' clones. Prints ms a step plain and compressed, the exchange's
+   ms, the bytes exchanged against a bf16 psum's, peak GiB and each
+   step's share of model FLOPs at the data sheet's 989 TFLOP/s. (b) The fill-drain
+   `parallel/pipeline.py` over 4 stages of one full-width qwen3-1.7b
+   dense block each (bf16, forward only), 8 microbatches of 1 x 4,096
+   tokens: bit for bit the blocks applied in sequence; the planted fault
+   (the stage shift skipped) must differ. Prints ms, ticks and the
+   bubble share. No kernel of the port is on either path.
+15. The calls by shape of the store kernels over phases 3-6, 8 and 11,
    a `kernels` JSON line (with phases 8 and 11's paged_attention rows,
    each with its `shape`), then the last line
    `{"ok": true, "device": {...}}`.
@@ -297,6 +316,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import functools
 import gc
@@ -6172,6 +6192,325 @@ def music_phase(torch, seed: int):
                     functools.partial(head_rolled, torch))
 
 
+# ---------------------------------------------------------------------------
+# phase 14: pod-compressed training and the pipeline primitive
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7b at full width cut to 4 of its 28 layers (phase 7's depth would
+# double the phase's time, and the exchange's work is a leaf's, not a
+# layer's); phase 7's 8 x 4,096 tokens a step, on a (2, 4) ("pod", "data")
+# mesh folded onto the card: each pod's 4 sequences in 2 microbatches (2
+# sequences each, phase 7's microbatch)
+POD_ARCH = "qwen3-1.7b"
+POD_LAYERS = 4
+POD_MESH = (("pod", "data"), (2, 4))
+POD_STEPS = 3
+POD_PLAIN_MICRO = 4
+POD_MICRO = 2
+POD_LOSS_RTOL = 0.05        # the reference's compress_prog.py rule
+POD_MEAN_ULPS = 4           # f32 rounding beyond sum_p scale_p / (2P)
+PEAK_BF16 = 989e12          # H100 SXM data sheet, dense bf16 (launch/roofline)
+# 4 stages of one qwen3-1.7b dense block each (full width, bf16 compute,
+# forward only), 8 microbatches of 1 x 4,096 tokens
+PIPE_STAGES = 4
+PIPE_MICRO = 8
+PIPE_SEQ = 4096
+
+
+def pod_recorder(torch, compress, sink: list):
+    """Wrap `compress.quantize_pod` / `compress.exchange` so each call's
+    inputs and outputs land in `sink` (clones, the clone time apart) and
+    the exchange is timed apart; returns the undo."""
+    quant, exch = compress.quantize_pod, compress.exchange
+
+    def quantize_pod(grads, residuals, pod, leaves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen = {n: (g.detach().clone(), residuals[n][pod].clone())
+                for n, g in grads.items()}
+        torch.cuda.synchronize()
+        clone_s = time.perf_counter() - t0
+        out = quant(grads, residuals, pod, leaves)
+        sink.append(("pod", pod, seen, out,
+                     {n: residuals[n][pod].clone() for n in grads}, clone_s))
+        return out
+
+    def exchange(payloads, dtypes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exch(payloads, dtypes)
+        torch.cuda.synchronize()
+        sink.append(("exchange", out, time.perf_counter() - t0))
+        return out
+
+    compress.quantize_pod, compress.exchange = quantize_pod, exchange
+
+    def undo():
+        compress.quantize_pod, compress.exchange = quant, exch
+    return undo
+
+
+def pod_mean_check(torch, pods, g_new, n_pods: int, fault: bool = False):
+    """Per leaf, |g' - mean_p(g_p + r_p)| <= sum_p scale_p / (2P) plus f32
+    rounding; with `fault`, g' is the sum over pods in place of the mean.
+    Returns (leaves over the limit, worst excess over the limit)."""
+    over, worst = 0, 0.0
+    for n, got in g_new.items():
+        want = sum(g.float() + r for (g, r) in (p[2][n] for p in pods))
+        want = want / n_pods
+        if fault:
+            got = got * n_pods
+        limit = sum(float(p[3][n][1]) for p in pods) / (2 * n_pods)
+        limit += POD_MEAN_ULPS * float(torch.finfo(torch.float32).eps
+                                       * want.abs().max())
+        err = float((got.float() - want).abs().max())
+        if err > limit:
+            over += 1
+            worst = max(worst, err - limit)
+    return over, worst
+
+
+def pod_step_checks(torch, rec, n_params: int, n_pods: int) -> dict:
+    """One compressed step's checks on its recording."""
+    pods = [r for r in rec if r[0] == "pod"]
+    (_, g_new, exch_s), = [r for r in rec if r[0] == "exchange"]
+    check([p[1] for p in pods] == list(range(n_pods)),
+          f"pods quantized {[p[1] for p in pods]}")
+    exact = all(torch.equal(p[4][n], (p[2][n][0].float() + p[2][n][1])
+                            - p[3][n][0].float() * p[3][n][1])
+                for p in pods for n in p[4])
+    check(exact, "residuals differ from g32 - q * scale")
+    dtypes = {p[3][n][0].dtype for p in pods for n in p[3]}
+    check(dtypes == {torch.int8}, f"payload dtypes {dtypes}")
+    # one f32 scale a leaf of the reference's tree (its layers stacked)
+    n_leaves = len({id(v[1]) for v in pods[0][3].values()})
+    sent = sum(p[3][n][0].numel() * p[3][n][0].element_size()
+               for p in pods for n in p[3]) + n_pods * n_leaves * 4
+    check(sent == n_pods * n_params + n_pods * n_leaves * 4,
+          f"exchanged {sent} bytes, not {n_pods} x {n_params} + scales")
+    over, worst = pod_mean_check(torch, pods, g_new, n_pods)
+    check(over == 0, f"{over} leaves' mean beyond sum scale / 2P "
+                     f"(worst by {worst:.3e})")
+    f_over, _ = pod_mean_check(torch, pods, g_new, n_pods, fault=True)
+    check(f_over > 0, "the planted fault (the sum over pods in place of "
+                      "the mean) passed the mean check")
+    clones = sum(t.numel() * t.element_size() for p in pods
+                 for n in p[4] for t in (p[2][n][0], p[2][n][1], p[4][n]))
+    return {"exchange_s": exch_s, "bytes": sent, "clone_bytes": clones,
+            "clone_s": sum(p[5] for p in pods), "fault_leaves": f_over,
+            "names": len(pods[0][3]), "scales": n_leaves}
+
+
+def pod_train(torch, cfg, params, shape, seed: int, pod_compress: bool):
+    """POD_STEPS steps of the train step from `params` on `synth_batch`'s
+    seeded batches; (losses, step seconds, each compressed step's checks,
+    peak GiB, the optimizer state). A step's recording is checked and
+    dropped before the next step. Compressed, one more step runs without
+    the recording, and the peak is (over the recorded steps, over that
+    step)."""
+    from repro_torch.core.routing import ShardMesh
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.optim import compress
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    mesh = ShardMesh(*POD_MESH)
+    params.make_trainable()
+    opt = {"adam": adamw_init(params)}
+    if pod_compress:
+        opt["residuals"] = compress.compress_state_init(params,
+                                                        mesh.shape["pod"])
+    step = make_train_step(cfg, microbatches=(POD_MICRO if pod_compress
+                                              else POD_PLAIN_MICRO),
+                           pod_compress=pod_compress, mesh=mesh)
+    n_params = sum(p.numel() for p in params.parameters())
+    losses, secs, checks = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(POD_STEPS):
+        batch = synth_batch(cfg, shape, seed, s, device=DEV)
+        rec = []
+        undo = pod_recorder(torch, compress, rec) if pod_compress else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+        finally:
+            if undo:
+                undo()
+        secs.append(time.perf_counter() - t0
+                    - sum(r[5] for r in rec if r[0] == "pod"))
+        losses.append(float(m["loss"]))
+        if pod_compress:
+            checks.append(pod_step_checks(torch, rec, n_params,
+                                          mesh.shape["pod"]))
+        del rec
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if pod_compress:
+        # one more step without the recorder: the peak without its clones
+        batch = synth_batch(cfg, shape, seed, POD_STEPS, device=DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        peak = (peak, torch.cuda.max_memory_allocated() / 2**30)
+    return losses, secs, checks, peak, opt
+
+
+def pod_training(torch, seed: int) -> dict:
+    """(a) pod-compressed training against plain steps from one init."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import cuda
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.models import model as M
+    cfg = get_config(POD_ARCH).replace(n_layers=POD_LAYERS)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=TRAIN_BATCH)
+    n_pods = POD_MESH[1][0]
+    init = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    n_params = sum(p.numel() for p in init.parameters())
+    plain = copy.deepcopy(init)
+    cuda.reset_launches()
+    p_losses, p_secs, _, p_peak, _ = pod_train(torch, cfg, plain, shape,
+                                               seed, False)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_losses, c_secs, checks, (c_peak, c_bare), opt = pod_train(
+        torch, cfg, init, shape, seed, True)
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    check(not launches, f"the pod train path launched kernels: {launches}")
+    check(all(math.isfinite(x) for x in p_losses + c_losses),
+          f"losses {p_losses} {c_losses}")
+    for a, b in zip(p_losses, c_losses):
+        check(abs(a - b) <= POD_LOSS_RTOL * max(abs(a), 1.0),
+              f"compressed loss {b} vs plain {a}")
+    res = sum(float(r.abs().sum()) for r in opt["residuals"].values())
+    check(res > 0, "error-feedback residuals never populated")
+    del init, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mf = model_flops(cfg, shape)
+    p_ms = statistics.fmean(p_secs[1:]) * 1e3
+    c_ms = statistics.fmean(c_secs[1:]) * 1e3
+    x_ms = statistics.fmean(c["exchange_s"] for c in checks[1:]) * 1e3
+    # bytes a pod sends: its payload and scales to the P - 1 others,
+    # against a ring all-reduce of the bf16 gradients (2 (P - 1) / P x 2N)
+    sent = (n_pods - 1) * checks[0]["bytes"] // n_pods
+    bf16_psum = 2 * (n_pods - 1) * 2 * n_params // n_pods
+    print(f"pods: {cfg.name} full width, {POD_LAYERS} of 28 layers "
+          f"({n_params} parameters, f32, bf16 compute, remat), "
+          f"{shape.global_batch} x {shape.seq_len} tokens a step on "
+          f"{POD_MESH[1]} {POD_MESH[0]} folded; plain {POD_PLAIN_MICRO} "
+          f"microbatches, compressed {POD_MICRO} a pod; {POD_STEPS} steps "
+          f"each", flush=True)
+    print(f"pods: losses plain {p_losses} compressed {c_losses} (within "
+          f"{POD_LOSS_RTOL:.0%}); residual |r| sum {res:.6e}; the planted "
+          f"fault (sum over pods, not the mean) broke the mean check on "
+          f"{[c['fault_leaves'] for c in checks]} of {checks[0]['names']} "
+          f"parameters by step; {checks[0]['scales']} scales a pod (one a "
+          f"leaf of the reference's stacked tree)", flush=True)
+    print(f"pods: {p_ms:.3f} ms a step plain, {c_ms:.3f} compressed "
+          f"(steps 1-{POD_STEPS - 1}; by step {[round(s * 1e3, 3) for s in p_secs]}"
+          f" / {[round(s * 1e3, 3) for s in c_secs]}); exchange "
+          f"{x_ms:.3f} ms a step apart; int8 payloads + scales "
+          f"gathered {checks[0]['bytes']} bytes a step, {sent} sent a pod "
+          f"against a bf16 ring psum's {bf16_psum} "
+          f"({sent / bf16_psum:.4f}x); peak "
+          f"{p_peak:.3f} GiB plain, {c_bare:.3f} GiB compressed (step "
+          f"{POD_STEPS}, unrecorded; {c_peak:.3f} over the recorded steps "
+          f"with the checks' clones, {checks[0]['clone_bytes'] / 2**30:.3f}"
+          f" GiB a step)", flush=True)
+    print(f"pods: model FLOPs {mf:.6e} a step: share of {PEAK_BF16:.3e} "
+          f"FLOP/s {mf / (p_ms * 1e-3 * PEAK_BF16):.4f} plain, "
+          f"{mf / (c_ms * 1e-3 * PEAK_BF16):.4f} compressed; card "
+          f"{card_line()}", flush=True)
+    return {"plain_ms": p_ms, "comp_ms": c_ms, "exchange_ms": x_ms,
+            "peak_gib": c_bare}
+
+
+def pipeline_check(torch, seed: int) -> dict:
+    """(b) the fill-drain pipeline of PIPE_STAGES full-width qwen3-1.7b
+    blocks against their sequential application."""
+    from torch.func import functional_call, stack_module_state
+    from repro_torch.configs import get_config
+    from repro_torch.core.routing import ShardMesh
+    from repro_torch.models.blocks import block_forward, init_block
+    from repro_torch.parallel import pipeline
+    cfg = get_config(POD_ARCH)
+    gen = torch.Generator(DEV).manual_seed(seed + 14)
+    blocks = [init_block(gen, cfg, "dense") for _ in range(PIPE_STAGES)]
+    stacked, _ = stack_module_state(blocks)
+    template = blocks[0]
+    positions = torch.arange(PIPE_SEQ, device=DEV, dtype=torch.int32)[None]
+
+    class Stage(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block = template
+
+        def forward(self, x):
+            return block_forward(self.block, cfg, "dense", x, positions,
+                                 0)[0]
+
+    stage = Stage()
+
+    def stage_fn(p, x):
+        return functional_call(stage, {f"block.{k}": v for k, v in p.items()},
+                               (x,))
+
+    xs = (torch.randn((PIPE_MICRO, 1, PIPE_SEQ, cfg.d_model), generator=gen,
+                      device=DEV) * 0.5).to(torch.bfloat16)
+    mesh = ShardMesh(("stage",), (PIPE_STAGES,))
+    run = pipeline.pipeline_apply(stage_fn, mesh)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = run(stacked, xs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = []
+        for m in range(PIPE_MICRO):
+            y = xs[m]
+            for s in range(PIPE_STAGES):
+                y = stage_fn({k: v[s] for k, v in stacked.items()}, y)
+            want.append(y)
+        want = torch.stack(want)
+        err = float((ys.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(ys.float()).all()), "pipeline outputs")
+        check(torch.equal(ys, want),
+              f"pipeline vs sequential blocks: max |diff| {err}")
+        shift = pipeline._shift
+        pipeline._shift = lambda y, zeros: list(y)
+        try:
+            bad = run(stacked, xs)
+        finally:
+            pipeline._shift = shift
+        f_err = float((bad.float() - want.float()).abs().max())
+        check(not torch.equal(bad, want) and f_err > 0,
+              "the planted fault (the shift skipped) matched the "
+              "sequential blocks")
+    ticks = PIPE_MICRO + PIPE_STAGES - 1
+    print(f"pipeline: {PIPE_STAGES} stages of one {cfg.name} dense block "
+          f"(full width, {cfg.compute_dtype}), {PIPE_MICRO} microbatches of "
+          f"1 x {PIPE_SEQ} tokens: {ms:.3f} ms, {ticks} ticks, "
+          f"{PIPE_STAGES * ticks} stage calls, bubble "
+          f"{(PIPE_STAGES - 1) / ticks:.4f}; bit for bit the sequential "
+          f"blocks; the planted fault (shift skipped) off by {f_err:.3e}",
+          flush=True)
+    return {"pipe_ms": ms}
+
+
+def pods_phase(torch, seed: int) -> dict:
+    """Phase 14: pod-compressed training, then the pipeline primitive. No
+    CUDA kernel of the port is on either path."""
+    report = pod_training(torch, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(pipeline_check(torch, seed))
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6252,6 +6591,11 @@ def main() -> int:
     done()
     done = phase("13 musicgen")
     music_phase(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    done()
+    done = phase("14 pods and pipeline")
+    pods_phase(torch, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     done()

@@ -74,6 +74,14 @@ class ModelConfig:
     scan_chunk: int = 256            # mLSTM / mamba chunk length
     kv_cache_dtype: str = "bfloat16"
     ssm_scan_dtype: str = "float32"  # or "bfloat16" (plain scan only)
+    decode_shard: str = "batch"      # or "seq2d": batch replicated, the
+                                     # cache's seq dim over (dp..., model);
+                                     # read by the dry run's cache specs
+    pod_compress: bool = False       # int8 error-feedback gradient exchange
+                                     # over the pod axis (optim/compress.py)
+    # The reference's `scan_layers` has no counterpart: the port walks its
+    # layers in a Python loop (no layer scan), so its dry run counts every
+    # layer and its roofline needs no unrolled probes.
 
     @property
     def resolved_head_dim(self) -> int:

@@ -27,3 +27,13 @@ def tiered3(policy: str = "lru"):
     eviction policy ("lru" | "size"; "none" = spill-only)."""
     name = "tiered3" if policy == "none" else f"tiered3/{policy}"
     return CONFIG.replace(store_backend=name)
+
+
+def kernelized(mode: str = "gpu"):
+    """The §IX composition with its probes through exec mode `mode`
+    ("gpu": the CUDA kernels; "torch": the plain versions); results are
+    bit-identical across modes."""
+    from repro_torch.exec import MODES
+    if mode not in MODES:
+        raise ValueError(f"unknown store exec mode {mode!r}; one of {MODES}")
+    return CONFIG.replace(store_backend="hash+skiplist", store_exec=mode)

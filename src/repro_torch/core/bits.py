@@ -112,6 +112,20 @@ def make_priority_key(priority: torch.Tensor,
                                                & 0xFFFFFFFF)
 
 
+def pack_key_payload(key_hi32: torch.Tensor,
+                     payload: torch.Tensor) -> torch.Tensor:
+    """A 32-bit key tag and a 32-bit payload in one u64 (its int64 bit
+    pattern): tag in the high half, payload's low 32 bits in the low."""
+    hi = key_hi32.to(torch.int64) & 0xFFFFFFFF
+    return (hi << 32) | (payload.to(torch.int64) & 0xFFFFFFFF)
+
+
+def unpack_key_payload(word: torch.Tensor):
+    """(tag, payload) of `pack_key_payload`'s words, each the u32's bits
+    in an int64 (torch's uint32 lacks shifts and compares)."""
+    return shr(word, 32), word & 0xFFFFFFFF
+
+
 def dup_in_run(same_as_prev: torch.Tensor, masked: torch.Tensor) -> torch.Tensor:
     """In-batch duplicate mask over a SORTED batch: True for every masked
     lane that is not the FIRST MASKED lane of its equal-key run.

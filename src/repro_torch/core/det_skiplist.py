@@ -17,7 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.core.bits import KEY_INF, dup_in_run, ordered, u64_le
+from repro_torch.core.bits import KEY_INF, dup_in_run, i64, ordered, u64_le
 from repro_torch.core.layout import (bskiplist_layout, first_true,
                                      inverse_perm, kv_arrays, scatter_drop)
 
@@ -68,6 +68,10 @@ class DetSkiplist(NamedTuple):
     @property
     def num_levels(self) -> int:
         return len(self.level_keys)
+
+    def size(self) -> torch.Tensor:
+        """Live entries: physical minus marked, () int32."""
+        return self.n_term - self.n_marked
 
 
 def _level_caps(capacity: int) -> list[int]:
@@ -184,6 +188,15 @@ def find_batch_blocked(s: DetSkiplist, queries: torch.Tensor):
     found = ((s.term_keys[il] == queries) & ~s.term_mark[il]
              & (queries != KEY_INF))
     return found, torch.where(found, s.term_vals[il], 0), i
+
+
+def contains(s: DetSkiplist, key) -> torch.Tensor:
+    """Whether the u64 `key` (its int64 bit pattern, or a Python int
+    below 2**64) is stored and live: a () bool."""
+    if not torch.is_tensor(key):
+        key = torch.tensor([i64(int(key))], dtype=torch.int64,
+                           device=s.term_keys.device)
+    return find_batch(s, key.reshape(1).to(torch.int64))[0][0]
 
 
 # ---------------------------------------------------------------------------

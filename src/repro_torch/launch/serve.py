@@ -1,16 +1,19 @@
 """Serving launcher: continuous batching on an architecture's reduced
 config, on the card unless `--device cpu` is given. The paged_attention
 kernel is built for heads of 64 and 128, so the reduced config's heads
-are widened to 64 (`PAGED_HEAD_DIM`) on either device.
+are widened to 64 (`PAGED_HEAD_DIM`) on either device. `--dryrun` runs
+the FULL config's prefill_32k and decode_32k cells shapes-only on the
+production mesh (`launch.dryrun`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --requests 12
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-405b --dryrun
 """
 from __future__ import annotations
 
 import argparse
 
-from repro_torch.launch.train import DRYRUN_REFUSAL
+from repro_torch.launch.train import MULTI_POD_ALONE, dryrun
 
 PAGED_HEAD_DIM = 64
 
@@ -22,11 +25,14 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dryrun", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dryrun: the 2 x 16 x 16 mesh")
     args = ap.parse_args(argv)
 
-    if args.dryrun or args.multi_pod:
-        raise SystemExit(DRYRUN_REFUSAL)
+    if args.multi_pod and not args.dryrun:
+        raise SystemExit(MULTI_POD_ALONE)
+    if args.dryrun:
+        dryrun(args.arch, ("prefill_32k", "decode_32k"), args.multi_pod)
 
     import numpy as np
     import torch

@@ -1,16 +1,34 @@
 """Training launcher: the real loop on an architecture's reduced config,
-on the card unless `--device cpu` is given.
+on the card unless `--device cpu` is given; or `--dryrun` to run the FULL
+config's train_4k cell shapes-only on the production mesh
+(`launch.dryrun`, in-process: nothing is allocated).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b --dryrun [--multi-pod]
 """
 from __future__ import annotations
 
 import argparse
 
-DRYRUN_REFUSAL = ("--dryrun/--multi-pod: the reference's launch/dryrun.py "
-                  "lowers a config onto a TPU mesh through XLA; the port has "
-                  "no torch counterpart of that lowering")
+MULTI_POD_ALONE = ("--multi-pod applies only with --dryrun (the dry run's "
+                   "2 x 16 x 16 mesh)")
+
+
+def dryrun(arch: str, shapes, multi_pod: bool) -> None:
+    """`launch.dryrun` over `shapes` of `arch`: its OK / FAIL lines, then
+    SystemExit with 1 if any cell failed."""
+    from repro_torch.launch import dryrun as dr
+    rc = 0
+    for shape in shapes:
+        argv = ["--arch", arch, "--shape", shape]
+        if multi_pod:
+            argv.append("--multi-pod")
+        try:
+            dr.main(argv)
+        except SystemExit as e:
+            rc |= int(e.code or 0)
+    raise SystemExit(rc)
 
 
 def main(argv=None):
@@ -23,11 +41,14 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dryrun", action="store_true")
-    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --dryrun: the 2 x 16 x 16 mesh")
     args = ap.parse_args(argv)
 
-    if args.dryrun or args.multi_pod:
-        raise SystemExit(DRYRUN_REFUSAL)
+    if args.multi_pod and not args.dryrun:
+        raise SystemExit(MULTI_POD_ALONE)
+    if args.dryrun:
+        dryrun(args.arch, ("train_4k",), args.multi_pod)
 
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import ShapeConfig

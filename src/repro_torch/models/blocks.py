@@ -136,7 +136,12 @@ def _moe_sharded(p, cfg, x2d, impl: str):
     (the shared expert added). Tokens split over the data axes
     ("replicated_psum") or over the data axes and then the model axis
     ("routed_a2a"), row-major, as the reference's token specs split them.
-    aux is the mean of the shards' losses. Returns (y2d, aux)."""
+    Under "routed_a2a" a token count that does not divide over the
+    shards (a decode batch smaller than the mesh, which the reference's
+    token spec refuses) is padded with zero rows that route nowhere and
+    leave aux out. aux is the mean of the losses of the shards that hold
+    a live token (every shard where the count divides). Returns (y2d,
+    aux)."""
     mesh = current_mesh()
     if mesh is None:
         return moe_mod.moe_dense_ffn(p, cfg, x2d)
@@ -147,11 +152,16 @@ def _moe_sharded(p, cfg, x2d, impl: str):
     if cfg.n_experts % tp:
         raise ValueError(f"{cfg.n_experts} experts over a model axis of {tp}")
     if impl == "routed_a2a":
-        if t % (dp * tp):
-            raise ValueError(f"{t} tokens over {dp} x {tp} shards")
-        y, aux = moe_mod.moe_routed_a2a(p, cfg,
-                                        x2d.reshape(dp, tp, t // (dp * tp), d))
-        return y.reshape(t, d), aux.mean()
+        pad = -t % (dp * tp)
+        if not pad:
+            y, aux = moe_mod.moe_routed_a2a(
+                p, cfg, x2d.reshape(dp, tp, t // (dp * tp), d))
+            return y.reshape(t, d), aux.mean()
+        per = (t + pad) // (dp * tp)
+        xp = torch.cat([x2d, x2d.new_zeros(pad, d)])
+        y, aux = moe_mod.moe_routed_a2a(p, cfg, xp.reshape(dp, tp, per, d),
+                                        n_valid=t)
+        return y.reshape(t + pad, d)[:t], aux.sum() / -(-t // per)
     if impl != "replicated_psum":
         raise ValueError(f"moe_impl {impl!r}: 'dense', 'replicated_psum' or "
                          f"'routed_a2a'")

@@ -74,9 +74,11 @@ def init_moe(gen: torch.Generator, cfg) -> MoE:
     return MoE(**p)
 
 
-def router_probs(p: MoE, cfg, x: torch.Tensor):
+def router_probs(p: MoE, cfg, x: torch.Tensor,
+                 live: torch.Tensor | None = None):
     """x: [..., T, D] -> (weights [..., T, k] f32, experts [..., T, k]
-    int32, aux [...] f32: the Switch loss over the T axis)."""
+    int32, aux [...] f32: the Switch loss over the T axis, or with `live`
+    ([..., T] bool) over the live tokens only, 0 where there are none)."""
     logits = x.float() @ p.router.float()
     probs = torch.softmax(logits, dim=-1)
     k = cfg.n_experts_active
@@ -86,8 +88,15 @@ def router_probs(p: MoE, cfg, x: torch.Tensor):
     if cfg.norm_topk_prob:
         w = w / torch.sum(w, dim=-1, keepdim=True)
     e = cfg.n_experts
-    f_e = torch.mean(F.one_hot(idx[..., 0], e).float(), dim=-2)
-    p_e = torch.mean(probs, dim=-2)
+    top1 = F.one_hot(idx[..., 0], e).float()
+    if live is None:
+        f_e = torch.mean(top1, dim=-2)
+        p_e = torch.mean(probs, dim=-2)
+    else:
+        m = live[..., None].float()
+        n = torch.clamp(m.sum(-2), min=1.0)
+        f_e = (top1 * m).sum(-2) / n
+        p_e = (probs * m).sum(-2) / n
     aux = e * torch.sum(f_e * p_e, dim=-1)
     return w, idx.to(torch.int32), aux
 
@@ -239,7 +248,7 @@ def moe_replicated_psum(p: MoE, cfg, x: torch.Tensor,
 
 
 def moe_routed_a2a(p: MoE, cfg, x: torch.Tensor,
-                   return_dropped: bool = False):
+                   return_dropped: bool = False, n_valid: int | None = None):
     """The paper's routing. x: [dp, tp, t, D], shard (d, m) holding chunk
     d * tp + m of the tokens. Each shard buckets its lanes by owner shard
     (capacity-bounded, `bucketize`'s order), the all_to_all moves the
@@ -249,18 +258,27 @@ def moe_routed_a2a(p: MoE, cfg, x: torch.Tensor,
     `cfg.moe_capacity_factor`. Returns (y [dp, tp, t, D] in the compute dtype, aux
     [dp, tp]), and with `return_dropped` the lanes of each token dropped
     at either bucketing ([dp, tp, t] int32). The shared expert is not
-    added."""
+    added. With `n_valid`, only the first n_valid tokens of the
+    shard-major order are live: the rest are padding, route nowhere and
+    leave aux out (a shard's aux is over its live tokens, 0 where it has
+    none); the capacities follow the shards' padded row count t."""
     dp, tp, t, d = x.shape
     capacity_factor = cfg.moe_capacity_factor
     k, e = cfg.n_experts_active, cfg.n_experts
     el = e // tp
     ct = dtype_of(cfg.compute_dtype)
-    w, idx, aux = router_probs(p, cfg, x)
+    tok_live = None
+    if n_valid is not None:
+        tok_live = (torch.arange(dp * tp, device=x.device).reshape(dp, tp, 1)
+                    * t + torch.arange(t, device=x.device)) < n_valid
+    w, idx, aux = router_probs(p, cfg, x, tok_live)
     dest = idx.reshape(dp, tp, t * k)                  # global expert id
     owner = _owner_of(dest, el)
     cap = max(1, int(capacity_factor * t * k / tp) + 8)
+    live = (torch.ones_like(owner, dtype=torch.bool) if tok_live is None
+            else tok_live.repeat_interleave(k, dim=-1))
     (lane_b, w_b, e_b), valid, _ = bucketize(
-        owner, torch.ones_like(owner, dtype=torch.bool),
+        owner, live,
         [_lanes(idx, k).expand(dp, tp, t * k), w.reshape(dp, tp, t * k),
          dest], tp, cap)                               # [dp, tp, tp, cap]
     xs = x.reshape(dp * tp, t, d)

@@ -84,6 +84,14 @@ def _mamba_core(p: Mamba, cfg, xz, conv_state):
     return F.silu(xc), z, xp[:, n - (k - 1):]
 
 
+def check_scan_kernel(cfg) -> None:
+    """The selective_scan kernel's refusal of a scan dtype it lacks."""
+    if cfg.ssm_scan_dtype != "float32":
+        raise NotImplementedError(
+            f"the selective_scan kernel runs in float32; ssm_scan_dtype "
+            f"{cfg.ssm_scan_dtype!r} runs in exec mode 'torch' only")
+
+
 def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
     """x: [B, S, D] -> (y [B, S, D], new state)."""
     b, s, d = x.shape
@@ -94,10 +102,7 @@ def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
         state = init_state(cfg, b, x.device, dtype_of(ct))
     gpu = exec_.resolve(None) == "gpu"
     if gpu:
-        if cfg.ssm_scan_dtype != "float32":
-            raise NotImplementedError(
-                f"the selective_scan kernel runs in float32; ssm_scan_dtype "
-                f"{cfg.ssm_scan_dtype!r} runs in exec mode 'torch' only")
+        check_scan_kernel(cfg)
         exec_.no_autograd("selective_scan", x, state["ssm"],
                           *p.parameters())
         exec_.gpu_tensors("mamba_forward", x)

@@ -36,6 +36,10 @@ class OpPlan(NamedTuple):
     vals: torch.Tensor   # [K] int64 (u64 bits)
     mask: torch.Tensor   # [K] bool
 
+    @property
+    def width(self) -> int:
+        return self.ops.shape[0]
+
 
 class OpResults(NamedTuple):
     ok: torch.Tensor     # [K] bool

@@ -65,6 +65,7 @@ def apply_linearized(state, plan: OpPlan, insert_fn, delete_fn, find_fn,
 class DetSkiplistBackend:
     name = "det_skiplist"
     ordered = True
+    kernelized = True      # FIND -> kernels/skiplist_search
 
     def init(self, capacity: int, device="cuda", **kw):
         return dsl.skiplist_init(capacity, device=resolve_device(device))
@@ -90,6 +91,7 @@ class DetSkiplistBackend:
 class RandSkiplistBackend:
     name = "rand_skiplist"
     ordered = True
+    kernelized = False     # the MAX_GAP walk stays plain in every mode
 
     def init(self, capacity: int, device="cuda", **kw):
         return rsl.rand_skiplist_init(capacity, device=resolve_device(device))
@@ -111,6 +113,7 @@ class RandSkiplistBackend:
 
 class _Unordered:
     ordered = False
+    kernelized = False
 
     def scan(self, state, lo, hi, max_out: int):
         raise NotImplementedError(
@@ -120,6 +123,7 @@ class _Unordered:
 
 class FixedHashBackend(_Unordered):
     name = "fixed_hash"
+    kernelized = True      # probe -> kernels/hash_probe
 
     def init(self, capacity: int, bucket: int = 16, device="cuda", **kw):
         return ht.fixed_init(pow2_floor(max(capacity // bucket, 1)), bucket,
@@ -181,6 +185,7 @@ class SplitOrderBackend(_Unordered):
 
 class TwoLevelSplitOrderBackend(_Unordered):
     name = "twolevel_splitorder"
+    kernelized = True      # probe -> kernels/splitorder_probe
 
     def init(self, capacity: int, num_tables: int = 8, seed_slots: int = 2,
              max_load: int = 16, device="cuda", **kw):

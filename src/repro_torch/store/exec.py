@@ -26,7 +26,10 @@ is re-exported here.
 
 Every entry counts as ONE dispatch of kind "probe" or "update"; in an
 eager framework the count is per call, i.e. per launch of the step.
-`measure_dispatches()` yields a context-local, nestable `DispatchMeter`.
+`measure_dispatches()` yields a context-local, nestable `DispatchMeter`;
+`dispatch_count()` is the process-cumulative count of the same meter
+(`reset_dispatch_count()` zeroes it and leaves the open meters alone).
+`runnable_modes()` are the modes that can run here.
 """
 from __future__ import annotations
 
@@ -47,7 +50,19 @@ from repro_torch.store import obs
 # dispatch accounting (context-local, nestable)
 # ---------------------------------------------------------------------------
 
+# dispatches split by kind: "probe" (read-only FIND / membership launches)
+# and "update" (write-path launches: the hot-tier prologue, tier_apply)
+DISPATCH_KINDS = ("probe", "update")
+
+_n_by_kind = {k: 0 for k in DISPATCH_KINDS}
+
 _METERS: ContextVar[tuple] = ContextVar("repro_torch_exec_meters", default=())
+
+
+def runnable_modes() -> tuple:
+    """The exec modes that can run here: ("torch", "gpu") with a CUDA
+    device, else ("torch",)."""
+    return MODES if torch.cuda.is_available() else ("torch",)
 
 
 class DispatchMeter:
@@ -75,12 +90,31 @@ class DispatchMeter:
 
 
 def _bump(kind: str) -> None:
+    _n_by_kind[kind] += 1
     for meter in _METERS.get():
         meter._n += 1
         if kind == "probe":
             meter._probe += 1
         else:
             meter._update += 1
+
+
+def dispatch_count(kind: str | None = None) -> int:
+    """Dispatches issued through this module in this process since the
+    last `reset_dispatch_count`: the total, or one kind's."""
+    if kind is None:
+        return sum(_n_by_kind.values())
+    if kind not in DISPATCH_KINDS:
+        raise ValueError(f"unknown dispatch kind {kind!r}; "
+                         f"one of {DISPATCH_KINDS}")
+    return _n_by_kind[kind]
+
+
+def reset_dispatch_count() -> None:
+    """Zero `dispatch_count()`. Open `measure_dispatches` meters count
+    increments of their own, so a reset inside one leaves it whole."""
+    for k in DISPATCH_KINDS:
+        _n_by_kind[k] = 0
 
 
 @contextmanager

@@ -12,7 +12,8 @@ metrics and host trace spans.
 * `ObservedStore` (the `obs:` registry prefix of `api.get_backend`) wraps
   any backend: its state is `ObservedState(inner, metrics)`, `apply`
   records the plan-level counters and folds every frame into the
-  `metrics` plane, and `metrics(state)` reads it over `METRICS_SCHEMA`.
+  `metrics` plane, and `metrics(state)` reads it over `METRICS_SCHEMA`;
+  `flush` proxies a tier stack's bulk demotion the same way.
 * The six resilience counters of `METRICS_SCHEMA` never live in a state:
   they are host tallies (`resilience_zero`) merged into a metrics view by
   `merge_resilience`. The serving engine's host counters report through
@@ -54,6 +55,15 @@ RESILIENCE_SCHEMA = ("faults_injected", "recoveries", "replayed_ops",
 SERVING_SCHEMA = ("ring_depth", "prefix_hits", "prefix_lookups",
                   "prefix_hit_rate", "batch_fill", "decode_steps",
                   "decode_tokens")
+
+# span names; `span` accepts any name, but the instrumented modules keep
+# to the reference's taxonomy so traces of the two packages line up
+SPAN_TAXONOMY = ("route", "step", "find", "update", "insert", "delete",
+                 "pop", "demote", "promote", "compact", "flush", "scan",
+                 "admit", "prefill", "decode",
+                 # a quarantined shard's snapshot + journal rebuild
+                 # (store/resilience/restore.py)
+                 "recover")
 
 # bytes one routed op carries through the engine's queues: key u64 + val
 # u64 + op i32 + origin i32 (the reference's routing lane payload)
@@ -163,12 +173,14 @@ class ObservedStore:
     """`Store` adapter adding the metrics plane to any backend
     (`get_backend("obs:<name>")`). `apply` opens a collection frame around
     the inner apply, records the plan-level counters and folds the frame
-    into `state.metrics`; `scan` and `stats` proxy through."""
+    into `state.metrics`; `scan` and `stats` proxy through, and `flush`
+    proxies a tier stack's with its counters folded in."""
 
     def __init__(self, inner):
         self.inner = inner
         self.name = f"obs:{inner.name}"
         self.ordered = inner.ordered
+        self.kernelized = getattr(inner, "kernelized", False)
 
     def init(self, capacity: int, device="cuda", **kw) -> ObservedState:
         dev = resolve_device(device)
@@ -195,6 +207,14 @@ class ObservedStore:
         """The accumulated metrics plane (every schema key; untouched
         counters are zero)."""
         return dict(state.metrics)
+
+    def flush(self, state: ObservedState) -> ObservedState:
+        """The inner tier stack's bulk demotion, inside a collection frame,
+        so its demotions and spill appends land in the same counters."""
+        with collect() as frame:
+            inner2 = self.inner.flush(state.inner)
+        return ObservedState(inner=inner2,
+                             metrics=merge_metrics(state.metrics, frame))
 
 
 def _record_plan_metrics(plan, res) -> None:
@@ -259,6 +279,11 @@ def tracing(tracer: Tracer | None = None):
         yield tr
     finally:
         _TRACER.reset(token)
+
+
+def current_tracer() -> Tracer | None:
+    """The Tracer `tracing()` installed in this context, or None."""
+    return _TRACER.get()
 
 
 @contextmanager

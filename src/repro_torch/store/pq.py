@@ -47,6 +47,7 @@ class PQState(NamedTuple):
 class PQSkiplistBackend:
     name = "pq"
     ordered = True
+    kernelized = True      # FIND -> skiplist_search, POP -> pq_pop
 
     def init(self, capacity: int, device="cuda", **kw) -> PQState:
         dev = resolve_device(device)

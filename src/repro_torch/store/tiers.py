@@ -153,6 +153,7 @@ class TieredBackend:
     `tiered3[/lru|/size|/b128]` (depth 3)."""
 
     ordered = True
+    kernelized = True      # fused tier_find / tier_apply -> kernels
 
     def __init__(self, depth: int = 2, policy: str = "none",
                  fused: bool = True, warm_layout: str = "level"):

@@ -4,18 +4,19 @@ train_step:
   * microbatch gradient accumulation in f32, in order, then x 1/n
   * remat per layer (the model's `cfg.remat`)
   * AdamW with global-norm clipping on the warmup + cosine schedule
+  * optionally (`pod_compress`) the int8 error-feedback gradient exchange
+    over the pod axis of a `core.routing.ShardMesh` (`optim.compress`)
 
 Parameters are the model's `nn.Module`, trainable (`make_trainable`);
 a step updates them and the optimizer state in place and returns them.
-The reference's int8 error-feedback exchange on a pod axis
-(`pod_compress`) needs `optim/compress.py` and `parallel/`, which later
-slices port.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import model as M
+from repro_torch.models.blocks import block_kinds
+from repro_torch.optim import compress
 from repro_torch.optim.adamw import adamw_update
 from repro_torch.optim.schedule import cosine_with_warmup
 
@@ -63,15 +64,45 @@ def make_train_step(cfg, *, lr_peak=3e-4, warmup=100, total_steps=10000,
                     microbatches: int = 1, pod_compress: bool = False,
                     mesh=None, pod_axis: str = "pod"):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics), the first two updated in place."""
+    metrics), the first two updated in place.
+
+    With `pod_compress`, `mesh` is a `ShardMesh` with the axis `pod_axis`
+    of P pods. The batch splits along dim 0 into P pod-local slices in
+    pod order (the reference's `P(pod_axis)` batch spec); each pod's
+    gradients come from `grads_of` on its slice, one pod at a time, and
+    leave it only as the int8 payload of `compress.pod_allreduce_compressed`
+    (one scale a leaf of the reference's tree, `compress.stacked_leaves`);
+    the exchanged mean over pods feeds AdamW, loss and aux are the pods'
+    mean, and `opt_state["residuals"]` (`compress.compress_state_init(
+    params, P)`) carries each pod's error."""
     if pod_compress:
-        raise NotImplementedError(
-            "pod_compress: the int8 error-feedback gradient exchange needs "
-            "optim/compress.py and parallel/, which later slices of the "
-            "port bring")
+        if mesh is None or pod_axis not in mesh.axis_names:
+            raise ValueError(f"pod_compress needs a mesh with the axis "
+                             f"{pod_axis!r}; got {mesh}")
+        n_pods = mesh.shape[pod_axis]
+
+    def pod_grads(params, residuals, batch):
+        losses, auxes = [], []
+
+        def trees():
+            for part in _split_micro(batch, n_pods):
+                g, pl, pa = grads_of(params, cfg, part, microbatches)
+                losses.append(pl)
+                auxes.append(pa)
+                yield g
+                del g               # before the next pod's backward
+
+        leaves = compress.stacked_leaves(residuals, len(block_kinds(cfg)))
+        grads, _ = compress.pod_allreduce_compressed(trees(), residuals, mesh,
+                                                     pod_axis, leaves)
+        return grads, sum(losses) / n_pods, sum(auxes) / n_pods
 
     def train_step(params, opt_state, batch):
-        grads, loss, aux = grads_of(params, cfg, batch, microbatches)
+        if pod_compress:
+            grads, loss, aux = pod_grads(params, opt_state["residuals"],
+                                         batch)
+        else:
+            grads, loss, aux = grads_of(params, cfg, batch, microbatches)
         lr = cosine_with_warmup(opt_state["adam"]["step"] + 1,
                                 peak_lr=lr_peak, warmup_steps=warmup,
                                 total_steps=total_steps)

@@ -369,9 +369,29 @@ def test_launcher_runs_on_the_cpu(launcher, argv, expect, capsys):
     assert expect in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("launcher,argv,cells", [
+    (launch_train, ["--arch", ARCH, "--dryrun"], ["train_4k__16x16"]),
+    (launch_serve, ["--arch", ARCH, "--dryrun", "--multi-pod"],
+     ["prefill_32k__2x16x16", "decode_32k__2x16x16"])])
+def test_launcher_dryrun(launcher, argv, cells, capsys, tmp_path,
+                         monkeypatch):
+    """`--dryrun` runs the full config's cells shapes-only in-process
+    (`launch.dryrun`; the reports land in the working directory)."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        launcher.main(argv)
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    for cell in cells:
+        assert f"OK   {argv[1]}__{cell}" in out
+        assert (tmp_path / "reports" / "torch" / "dryrun"
+                / f"{argv[1]}__{cell}.json").exists()
+    assert "done: 1 ok, 0 failed" in out
+
+
 @pytest.mark.parametrize("launcher,argv,match", [
-    (launch_train, ["--arch", ARCH, "--dryrun"], "no torch counterpart"),
-    (launch_serve, ["--arch", ARCH, "--dryrun"], "no torch counterpart"),
+    (launch_train, ["--arch", ARCH, "--multi-pod"], "only with --dryrun"),
+    (launch_serve, ["--arch", ARCH, "--multi-pod"], "only with --dryrun"),
     (launch_serve, ["--arch", "hymba-1.5b", "--device", "cpu"],
      "paged engine serves GQA transformer families"),
     (launch_serve, ["--arch", "musicgen-medium", "--device", "cpu"],

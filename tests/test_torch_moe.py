@@ -360,6 +360,40 @@ def test_sharded_dispatch_matches_reference(sharded_reference, arch, impl,
         assert bool((y[gone] == 0).all())
 
 
+@pytest.mark.parametrize("t", [5, 13])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_routed_a2a_pads_a_token_count_that_does_not_split(arch, t):
+    """A token count that does not divide over the 8 shards (the reference
+    refuses it): the live tokens' outputs are the one-shard dispatch's
+    (the shared expert taken out, nothing dropped on either side), and
+    aux is the mean, over the shards holding a live token, of the
+    reference's Switch loss over that shard's live tokens."""
+    jcfg, tcfg, _, _ = _models(arch)
+    tcfg = tcfg.replace(moe_impl="routed_a2a")
+    jf, tf = _ffn_pair(arch)
+    x = _x(11 + t, t, tcfg.d_model)
+    tx = torch.from_numpy(x)
+    with use_mesh(ShardMesh(("data", "model"), MESH_SIZES)):
+        y, aux = TB._moe_sharded(tf, tcfg, tx, "routed_a2a")
+    want, _, drops = tmoe.moe_dense_ffn(tf, tcfg, tx, return_dropped=True)
+    if tcfg.n_shared_experts:
+        want = want - mlp(tf.shared, tx, tcfg.compute_dtype)
+    assert int(drops.sum()) == 0
+    _close(want, y)
+    dp, tp = MESH_SIZES
+    per = -(-t // (dp * tp))
+    xp = torch.cat([tx, tx.new_zeros(dp * tp * per - t, tcfg.d_model)])
+    _, _, dropped = tmoe.moe_routed_a2a(
+        tf, tcfg, xp.reshape(dp, tp, per, -1), return_dropped=True,
+        n_valid=t)
+    assert int(dropped.reshape(-1)[:t].sum()) == 0
+    router = jax.jit(lambda p, x: jmoe.router_probs(p, jcfg, x)[2])
+    shards = [x[i:i + per] for i in range(0, t, per)]
+    assert len(shards) < dp * tp            # a shard holds padding only
+    _close(np.mean([float(router(jf, jnp.asarray(c))) for c in shards]),
+           aux, AUX_TOL)
+
+
 # ---------------------------------------------------------------------------
 # blocks and the model
 # ---------------------------------------------------------------------------

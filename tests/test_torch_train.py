@@ -319,8 +319,25 @@ def test_train_steps_match_reference(qwen, ref_train_steps, operands):
 
 
 def test_pod_compress_is_a_later_slice(qwen):
-    with pytest.raises(NotImplementedError, match="optim/compress.py"):
-        t_step.make_train_step(qwen[1], pod_compress=True)
+    """pod_compress was refused until the slice that ported
+    `optim/compress.py`; now the step runs on a (2, 2) ("pod", "data")
+    mesh and carries each pod's residuals (its parity with the reference
+    is `test_torch_compress.py`'s)."""
+    from repro_torch.core.routing import ShardMesh
+    from repro_torch.optim.compress import compress_state_init
+    _, tcfg, jp = qwen
+    tp = _port_params(jp, tcfg)
+    opt = {"adam": t_adamw.adamw_init(tp),
+           "residuals": compress_state_init(tp, 2)}
+    step = t_step.make_train_step(tcfg, pod_compress=True,
+                                  mesh=ShardMesh(("pod", "data"), (2, 2)))
+    tp, opt, m = step(tp, opt, _batch(tcfg)[1])
+    assert np.isfinite(float(m["loss"])) and int(opt["adam"]["step"]) == 1
+    res = opt["residuals"]
+    assert res.keys() == dict(tp.named_parameters()).keys()
+    assert all(r.shape[0] == 2 and bool(r.abs().sum() > 0)
+               for r in res.values() if r[0].numel() > 1)
+    assert all(p.grad is None for p in tp.parameters())
 
 
 def test_serve_steps_match_forward(qwen):
