@@ -3,7 +3,9 @@
 hymba-1.5b's prefill and decode, the sharded store, training, the MoE
 family's serving, xlstm-1.3b's and minicpm3-4b's prefill and decode, the
 dense archs' serving, llava's frontend prefix and musicgen's codebooks,
-pod-compressed training and the pipeline) on one GPU and check it.
+pod-compressed training and the pipeline, hymba-1.5b's training through
+the selective scan's backward kernel, and the launchers) on one GPU and
+check it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -11,8 +13,9 @@ Phases (each prints its seconds; any failed check raises, so the exit code
 is non-zero and no result line is printed):
 
 1. Device and build: require CUDA, print the card's name and power limit
-   (`nvidia-smi`), build the ten CUDA kernels from `src/repro_torch/
-   kernels/csrc/` (one `nvcc` per source, in parallel). TF32 is off.
+   (`nvidia-smi`), build the eleven CUDA kernels from
+   `src/repro_torch/kernels/csrc/` (one `nvcc` per source, in parallel).
+   TF32 is off.
 2. Kernels: first the edge sweep of the shared level walk: skiplist_search,
    pq_pop, tier_find and tier_apply in the level layout (tier_find also
    in the block layout, at every team width of each), bit for bit
@@ -61,7 +64,7 @@ is non-zero and no result line is printed):
    token below each length dropped, a -1 page read as page 0, a token at
    a split boundary counted twice), edge rows for the split-KV merge (a
    split that owns no live page, a length-0 request that must give
-   zeros) and every G the kernel is built for at a small shape, timed
+   zeros) and every G and D the kernel is built for at a small shape, timed
    beside SDPA on gathered K/V. Median time per call from CUDA events,
    the plain version's time, a library call's time where one computes
    the same function
@@ -91,7 +94,18 @@ is non-zero and no result line is printed):
    planted fault (h0 ignored) that must break that limit; at hymba's
    prefill (8, 4,096, 3,200, 16) and decode (8, 1, 3,200, 16) shapes from
    a nonzero h0 within 1e-4 of max |y| and |h| of the chunked plain scan,
-   timed at both shapes, the decode time beside its own bound.
+   timed at both shapes, the decode time beside its own bound; its bf16
+   scan (`ssm_scan_dtype`) at both shapes within 2e-2 + 2e-2 |plain| of
+   the plain bf16 scan. The scan's backward against the step-by-step
+   plain backward within 1e-4 of each gradient's largest |value| at every
+   N, S 1 / 45 / 100, ragged D, a nonzero h0 and dh_last, and exp(dt A)
+   underflowing, then at one training microbatch (2 x 4,096 x 3,200 x
+   16); every case bit for bit on a second run, beside a planted fault
+   (the carry dropped at a chunk boundary); timed beside its plain
+   version and its bound; the saving forward (its chunk states too)
+   against the plain chunked scan window by window at that microbatch,
+   timed. paged_attention at the reduced configs' heads (D 16, G 2) over
+   the served batch's tables, f32 and bf16, timed.
    tier_apply and tier_find are also timed at every plan width of the
    main path (4,096-lane workload and 65,536-lane preload plans, both
    layouts, tier_apply with and without spill; the serving prefix
@@ -166,7 +180,13 @@ is non-zero and no result line is printed):
    prefill against the torch-mode prefill's (a limit per cache, which
    the torch-mode prefill one token short must exceed) and every gpu
    token the argmax of a torch-mode teacher-forced `forward` unless its top-2
-   margin is below 1e-3.
+   margin is below 1e-3. Then 8 prompts of 1,024 tokens and 8 decode
+   steps with `kv_cache_dtype` float8_e4m3fn beside bfloat16, teacher-
+   forced alike: the k / v bytes (half), ms a step and the logits' max
+   distance from the bf16 cache's (within 0.11 of the largest |logit|)
+   and from a bf16 cache holding the values rounded to fp8 (within
+   1e-3), both of which a planted fault (each decode step's fp8 entry
+   left unwritten) must exceed.
 6. The sharded store (paper §VI): the production single-pod mesh (16, 16)
    ("data", "model") folded onto the card, `paper_kvstore`'s 65,536 keys
    and 4,096 lanes a shard (2^20 lanes a step), pool factor 2, through
@@ -260,7 +280,7 @@ is non-zero and no result line is printed):
    (so MLA's 512-query chunk loop runs), its planted fault the cached
    rope keys roped one position late; check (b)'s bound allows for the
    bf16 latent cache, its planted fault the latent cache one position
-   late.
+   late; then the latent cache {ckv, kpe} in fp8 beside bf16, as phase 5.
 11. Dense serving: qwen1.5-110b (4 of 80 layers, ~47.5 GB of f32
    weights and their bf16 copy), llama3-405b (2 of 126, ~63.5 GB) and
    llava-next-mistral-7b (all 32, ~43.5 GB, text only: the engine takes
@@ -306,10 +326,25 @@ is non-zero and no result line is printed):
    tokens: bit for bit the blocks applied in sequence; the planted fault
    (the stage shift skipped) must differ. Prints ms, ticks and the
    bubble share. No kernel of the port is on either path.
-15. The calls by shape of the store kernels over phases 3-6, 8 and 11,
-   a `kernels` JSON line (with phases 8 and 11's paged_attention rows,
-   each with its `shape`), then the last line
-   `{"ok": true, "device": {...}}`.
+15. hymba-1.5b trained at full width and depth (32 layers, f32
+   parameters and AdamW moments, bf16 compute, remat, attn_impl "xla")
+   through `train()` in exec mode gpu: 4 x 4,096 tokens a step in 2
+   microbatches, 3 steps; launches exactly selective_scan 2 x 32, all
+   of them the saving forward (`selective_scan/save`), and
+   selective_scan_bwd 32 a microbatch (remat runs the forward twice) and
+   no other kernel; finite losses; prints ms a step, tokens/s and peak
+   GiB. Step 1 at 4 layers on one 4,096-token sequence in exec modes gpu
+   and torch from the same weights: loss within 1e-3 and gradient norm
+   within 1e-2 (relative). Then `launch.serve` on the reduced
+   qwen3-1.7b as it is (head_dim 16: paged_attention at D 16) and
+   `launch.train` on the reduced hymba-1.5b, both on the card.
+16. The calls by shape of the store kernels over phases 3-6, 8 and 11,
+   a `kernels` JSON line (with phases 8 and 11's paged_attention rows and
+   the reduced configs' D 16 row from the serve launcher, and the
+   scan's saving forward from phase 15 (its launches taken out of the
+   scan's row), each with its `shape`; the selective scan's backward
+   beside the ten), then the last
+   line `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -370,6 +405,11 @@ KERNELS = [
     ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:67"),
     ("selective_scan", "src/repro_torch/kernels/csrc/selective_scan.cu",
+     "src/repro/kernels/selective_scan/kernel.py:55"),
+    # the scan's backward: the reference differentiates its plain chunked
+    # scan (src/repro/models/ssm.py:100-117); the TPU kernel it sits beside
+    ("selective_scan_bwd",
+     "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
      "src/repro/kernels/selective_scan/kernel.py:55"),
 ]
 BOTH = ("gpu", "torch")
@@ -2365,7 +2405,7 @@ def pq_edge_sweep(torch, rng):
 
 
 def kernel_phase(torch, seed: int):
-    """Returns the rows of the ten kernels (the tier kernels in the level
+    """Returns the rows of the eleven kernels (the tier kernels in the level
     layout); the block-layout rows of tier_find and tier_apply are
     printed. The bound of a block walk (bskiplist_walk, the block rows) is
     the smaller of its own and the level walk's on the same state and
@@ -2633,6 +2673,10 @@ def kernel_phase(torch, seed: int):
     rows["flash_attention"] = flash_attention_row(torch, rng)
     rows["selective_scan"] = selective_scan_row(
         torch, rng, np.random.default_rng([seed, 2]))
+    rows["selective_scan"]["bf16"] = selective_scan_bf16(
+        torch, np.random.default_rng([seed, 13]))
+    rows["selective_scan_bwd"] = selective_scan_bwd_row(
+        torch, np.random.default_rng([seed, 14]))
 
     for name, r, lv in ([("bskiplist_walk", rows["bskiplist_walk"],
                           rows["skiplist_search"])]
@@ -2655,15 +2699,17 @@ def kernel_phase(torch, seed: int):
 # ---------------------------------------------------------------------------
 
 def paged_attention_inputs(torch, rng, dtype, arch=SERVE_ARCH,
-                           batch=SERVE_BATCH, num_pages=SERVE_NUM_PAGES):
-    """The served decode batch of one layer of `arch`: q [B, H, D], pools
+                           batch=SERVE_BATCH, num_pages=SERVE_NUM_PAGES,
+                           reduced=False):
+    """The served decode batch of one layer of `arch` (its reduced config
+    with `reduced`): q [B, H, D], pools
     of `num_pages` pages, tables [B, P] with seeded lengths 1..P * page
     (at most num_pages / B pages a request) and the edge rows: row 0 a -1
     page in the middle, row 1 length 1, row 2 a length ending mid-page,
     row 3 a -1 tail (its last two pages are -1 while its length covers
     them)."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
+    from repro_torch.configs import get_config, get_reduced
+    cfg = (get_reduced if reduced else get_config)(arch)
     B, H, HKV, D = (batch, cfg.n_heads, cfg.n_kv_heads,
                     cfg.resolved_head_dim)
     page, P, N = SERVE_PAGE, SERVE_PAGES_PER_REQ, num_pages
@@ -2687,51 +2733,85 @@ def paged_attention_inputs(torch, rng, dtype, arch=SERVE_ARCH,
             torch.from_numpy(tables).to(DEV), torch.from_numpy(lengths).to(DEV))
 
 
-def paged_attention_row(torch, rng):
-    """The paged_attention kernel against its plain version in f32 (within
-    2e-5: the same f32 products summed in another order, and the online
-    softmax's rescaling) and bf16 (within 3e-2, tests/test_kernels.py's
-    tolerance, and elementwise within half a bf16 step of |plain| plus the
-    f32 tolerance: the same bf16 inputs summed in f32, the kernel's output
-    rounded to bf16 once, and half a step is at most 2^-8 of the value);
-    then the planted faults, the split-KV edge rows and every G
-    (`paged_attention_faults`, `_edges`, `_groups`); timed in bf16 (the
-    served type) beside `scaled_dot_product_attention`
-    with enable_gqa on K/V already gathered into contiguous
-    [B, Hkv, P * page, D] tensors with a length mask (the gather is not
-    timed). The bound: the K/V rows of the tokens below each length on the
-    live pages (id >= 0), q, out, the table entries below each length and
-    the lengths, over the HBM rate."""
+def paged_attention_check(torch, rng, reduced=False):
+    """The paged_attention kernel against its plain version on the served
+    decode batch (`paged_attention_inputs`, the reduced config's heads
+    with `reduced`) in f32 (within 2e-5: the same f32 products summed in
+    another order, and the online softmax's rescaling) and bf16 (within
+    3e-2, tests/test_kernels.py's tolerance, and elementwise within half
+    a bf16 step of |plain| plus the f32 tolerance, `paged_limit`: the
+    same bf16 inputs summed in f32, the kernel's output rounded to bf16
+    once, and half a step is at most 2^-8 of the value). Returns the bf16
+    inputs, their plain output and the largest |kernel - plain|."""
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    errs = {}
+    label = "paged_attention" + (" (reduced heads)" if reduced else "")
+    errs = []
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
-        q, kp, vp, tables, lengths = paged_attention_inputs(torch, rng, dtype)
+        q, kp, vp, tables, lengths = paged_attention_inputs(
+            torch, rng, dtype, reduced=reduced)
         out = paged_attention(q, kp, vp, tables, lengths)
         torch.cuda.synchronize()
         ref = paged_attention_ref(q, kp, vp, tables, lengths)
-        check(bool(torch.isfinite(out.float()).all()), "paged_attention: "
-              "finite output")
+        check(bool(torch.isfinite(out.float()).all()), f"{label}: finite "
+              f"output")
         err = (out.float() - ref).abs()
-        errs[dtype] = float(err.max())
-        check(errs[dtype] <= tol, f"paged_attention ({dtype}) differs from "
-              f"its plain version by {errs[dtype]} > {tol}")
+        errs.append(float(err.max()))
+        check(errs[-1] <= tol, f"{label} ({dtype}) differs from its plain "
+              f"version by {errs[-1]} > {tol}")
         rel = ""
         if dtype == torch.bfloat16:
-            within = 2.0 ** -8 * (ref.abs() + 2e-5) + 2e-5
-            worst = float((err / within).max())
-            check(worst <= 1.0, f"paged_attention (bf16): an element is "
+            worst = float((err / paged_limit(ref)).max())
+            check(worst <= 1.0, f"{label} (bf16): an element is "
                   f"{worst:.3f} times half a bf16 step of |plain| + 2e-5 "
                   f"from its plain version")
             rel = (f"; at most {worst:.3f} of half a bf16 step of |plain| "
                    f"+ 2e-5")
-        print(f"paged_attention {dtype}: max |kernel - plain| "
-              f"{errs[dtype]:.3e} (tolerance {tol}){rel}", flush=True)
-    paged_attention_faults(torch, q, kp, vp, tables, lengths, ref)
-    paged_attention_edges(torch, rng, kp, vp)
+        b, h, d = q.shape
+        print(f"{label} {dtype} (B {b}, H {h}, Hkv {kp.shape[2]}, D {d}): "
+              f"max |kernel - plain| {errs[-1]:.3e} (tolerance {tol}){rel}",
+              flush=True)
+    return (q, kp, vp, tables, lengths), ref, max(errs)
+
+
+def paged_attention_row(torch, rng):
+    """`paged_attention_check` at the served qwen3-1.7b decode batch; then
+    the planted faults, the split-KV edge rows and every G and D
+    (`paged_attention_faults`, `_edges`, `_groups`); timed in bf16 (the
+    served type) beside `scaled_dot_product_attention` with enable_gqa
+    on K/V already gathered into contiguous [B, Hkv, P * page, D] tensors
+    with a length mask (the gather is not timed). The bound: the K/V rows
+    of the tokens below each length on the live pages (id >= 0), q, out,
+    the table entries below each length and the lengths, over the HBM
+    rate. The same check and timing at the reduced configs' heads
+    (`paged_reduced_heads`) go under "reduced"."""
+    ins, ref, err = paged_attention_check(torch, rng)
+    paged_attention_faults(torch, *ins, ref)
+    paged_attention_edges(torch, rng, ins[1], ins[2])
     paged_attention_groups(torch, rng)
-    return paged_attention_timing(torch, q, kp, vp, tables, lengths, ref,
-                                  max(errs.values()))
+    r = paged_attention_timing(torch, *ins, ref, err)
+    del ins, ref
+    r["reduced"] = paged_reduced_heads(torch, rng)
+    return r
+
+
+def paged_reduced_heads(torch, rng):
+    """`paged_attention_check` and the timing at the reduced configs'
+    heads (qwen3-1.7b's: H 4, Hkv 2, G 2, D 16, what `launch.serve`
+    serves) over the served batch's tables and edge rows. Returns that
+    reading, its `shape` named."""
+    ins, ref, err = paged_attention_check(torch, rng, reduced=True)
+    b, h, d = ins[0].shape
+    hkv = ins[1].shape[2]
+    r = paged_attention_timing(torch, *ins, ref, err)
+    r["shape"] = (f"{SERVE_ARCH} reduced decode: B {b}, H {h}, Hkv {hkv}, "
+                  f"G {h // hkv}, D {d}, page {SERVE_PAGE}, "
+                  f"{SERVE_NUM_PAGES} pages")
+    print(f"kernel paged_attention at {r['shape']}: {r['ms']:.6f} ms (plain "
+          f"{r['plain_ms']:.6f}, SDPA {r['library_ms']:.6f}, dispatch "
+          f"{r['dispatch_ms']:.6f}, bound {r['bound'][0]:.7f} by "
+          f"{r['bound'][1]})", flush=True)
+    return r
 
 
 def paged_attention_timing(torch, q, kp, vp, tables, lengths, ref, err):
@@ -2893,14 +2973,14 @@ def paged_attention_edges(torch, rng, kp, vp):
 
 
 def paged_attention_groups(torch, rng):
-    """Every G the kernel is built for (`GROUPS`) at a small shape: 4
-    requests, 2 KV heads, D 128, pages of 16, lengths 1, 37, 100 and 128
-    over 8-entry tables with a -1 page mid-table, in f32 (within 2e-5) and
-    bf16 (within the bf16 elementwise limit)."""
-    from repro_torch.kernels.paged_attention.kernel import GROUPS
+    """Every (G, D) the kernel is built for (`GROUPS` x `HEAD_DIMS`) at a
+    small shape: 4 requests, 2 KV heads, pages of 16, lengths 1, 37, 100
+    and 128 over 8-entry tables with a -1 page mid-table, in f32 (within
+    2e-5) and bf16 (within the bf16 elementwise limit)."""
+    from repro_torch.kernels.paged_attention.kernel import GROUPS, HEAD_DIMS
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    b, hkv, d, page, P, n = 4, 2, 128, 16, 8, 64
+    b, hkv, page, P, n = 4, 2, 16, 8, 64
     lengths = np.array([1, 37, 100, 128], np.int32)
     tables = np.full((b, P), -1, np.int32)
     ids = rng.permutation(n)
@@ -2911,28 +2991,33 @@ def paged_attention_groups(torch, rng):
         c += need
     tables[2, 1] = -1
     tt, ll = (torch.from_numpy(x).to(DEV) for x in (tables, lengths))
-    readings = []
-    for g in GROUPS:
-        for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp = (torch.from_numpy(rng.standard_normal(
-                s, dtype=np.float32)).to(DEV).to(dtype)
-                for s in ((b, hkv * g, d), (n, page, hkv, d),
-                          (n, page, hkv, d)))
-            out = paged_attention(q, kp, vp, tt, ll).float()
-            torch.cuda.synchronize()
-            ref = paged_attention_ref(q, kp, vp, tt, ll)
-            err = (out - ref).abs()
-            if dtype == torch.float32:
-                x = float(err.max())
-                check(x <= 2e-5, f"paged_attention G={g} (f32): {x}")
-            else:
-                x = float((err / paged_limit(ref)).max())
-                check(x <= 1.0, f"paged_attention G={g} (bf16): {x:.3f} of "
-                      f"the bf16 limit")
-            readings.append(f"G {g} {str(dtype)[6:]} {x:.3g}")
-    print("paged_attention per G (f32: max |kernel - plain|; bf16: the "
-          "worst element in units of the bf16 limit): "
-          + ", ".join(readings), flush=True)
+    worst = {}
+    for d in HEAD_DIMS:
+        for g in GROUPS:
+            for dtype in (torch.float32, torch.bfloat16):
+                q, kp, vp = (torch.from_numpy(rng.standard_normal(
+                    s, dtype=np.float32)).to(DEV).to(dtype)
+                    for s in ((b, hkv * g, d), (n, page, hkv, d),
+                              (n, page, hkv, d)))
+                out = paged_attention(q, kp, vp, tt, ll).float()
+                torch.cuda.synchronize()
+                ref = paged_attention_ref(q, kp, vp, tt, ll)
+                err = (out - ref).abs()
+                if dtype == torch.float32:
+                    x = float(err.max())
+                    check(x <= 2e-5, f"paged_attention G={g} D={d} (f32): "
+                          f"{x}")
+                else:
+                    x = float((err / paged_limit(ref)).max())
+                    check(x <= 1.0, f"paged_attention G={g} D={d} (bf16): "
+                          f"{x:.3f} of the bf16 limit")
+                key = (d, str(dtype)[6:])
+                worst[key] = max(worst.get(key, 0.0), x)
+    print(f"paged_attention at every G {GROUPS} and D {HEAD_DIMS}, the "
+          f"worst over G (f32: max |kernel - plain|; bf16: the worst "
+          f"element in units of the bf16 limit): " + ", ".join(
+              f"D {d} {t} {x:.3g}" for (d, t), x in worst.items()),
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3278,6 +3363,285 @@ def selective_scan_row(torch, rng, edge_rng):
           flush=True)
     del out, ins, dec
     torch.cuda.empty_cache()
+    return r
+
+
+SCAN_BF16_TOL = 2e-2
+
+
+def selective_scan_bf16(torch, rng):
+    """The kernel's bf16 scan (`ssm_scan_dtype` "bfloat16") against the
+    plain chunked bf16 scan at hymba's prefill (8, 4,096, 3,200, 16) and
+    decode (8, 1, 3,200, 16) shapes from a nonzero h0, within 2e-2 + 2e-2
+    |plain| (tests/test_torch_selective_scan.py's bound for the plain bf16
+    scan against the reference; the kernel runs the same associative
+    scan tree with the same bf16 roundings, so only its exps and the f32
+    y sums may differ), beside the f32 scan's distance from the plain
+    bf16 scan; timed at the prefill shape beside the f32 kernel. Returns
+    the reading."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
+    from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
+    cfg = get_config(HYMBA_ARCH)
+    d, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    bf = torch.bfloat16
+    worst = {}
+    for s in (HYMBA_PROMPT, 1):
+        ins = scan_inputs(torch, rng, HYMBA_BATCH, s, d, n)
+        got = selective_scan_fused(*ins, scan_dtype=bf,
+                                   scan_chunk=cfg.scan_chunk)
+        torch.cuda.synchronize()
+        want = selective_scan_chunked(*ins, chunk=cfg.scan_chunk,
+                                      scan_dtype=bf)
+        f32 = selective_scan_chunked(*ins, chunk=cfg.scan_chunk)
+        worst[s] = scan_within(torch, got, want, SCAN_BF16_TOL)
+        apart = scan_within(torch, f32, want, SCAN_BF16_TOL)
+        check(worst[s] <= 1.0, f"selective_scan bf16 (S {s}) differs from "
+              f"the plain bf16 scan: {worst[s]:.3f} of 2e-2 + 2e-2 |plain|")
+        print(f"selective_scan bf16 B {HYMBA_BATCH} S {s} D {d} N {n}: at "
+              f"most {worst[s]:.4f} of 2e-2 + 2e-2 |plain bf16|; the f32 "
+              f"scan {apart:.4f} of it (max |kernel - plain| y "
+              f"{float((got[0] - want[0]).abs().max()):.3e}, h "
+              f"{float((got[1] - want[1]).abs().max()):.3e})", flush=True)
+        if s == HYMBA_PROMPT:
+            pre = ins
+    ms = median_ms(torch, lambda: selective_scan_fused(
+        *pre, scan_dtype=bf, scan_chunk=cfg.scan_chunk))
+    f32_ms = median_ms(torch, lambda: selective_scan_fused(*pre))
+    plain_ms = median_ms(torch, lambda: selective_scan_chunked(
+        *pre, chunk=cfg.scan_chunk, scan_dtype=bf), 3)
+    print(f"kernel selective_scan/bf16 at the prefill shape: {ms:.6f} ms "
+          f"(f32 kernel {f32_ms:.6f}, plain bf16 scan {plain_ms:.6f})",
+          flush=True)
+    del pre, ins
+    torch.cuda.empty_cache()
+    return {"ms": ms, "f32_ms": f32_ms, "plain_ms": plain_ms,
+            "worst": max(worst.values())}
+
+
+# phase 2, row 11: the selective scan's backward. Held against the
+# step-by-step plain backward within SCAN_BWD_TOL of each gradient's
+# largest |plain|: the same f32 arithmetic but for ex2.approx against expf
+# and the order of the sums (dB, dC and dt over D's channels in shuffle,
+# warp and block order, dA over B and S), which moves a gradient by a
+# few ulps of its largest terms, summed over up to 4,096 steps or 3,200
+# channels
+SCAN_BWD_TOL = 1e-4
+SCAN_BWD_EDGES = ((2, 1, 77, "S 1"), (2, 45, 77, "S 45, D 77"),
+                  (2, 100, 36, "S 100, D 36"))
+SCAN_BWD_NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+
+
+def scan_bwd_kernel(torch, ins, dy, dh):
+    """The saving forward, then the backward kernel: ((y, h_last),
+    grads)."""
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan_bwd, selective_scan_fused)
+    y, h, chunks = selective_scan_fused(*ins, save_chunks=True)
+    return (y, h), selective_scan_bwd(*ins, chunks, dy, dh)
+
+
+def scan_bwd_off(got, want) -> list:
+    """max |got - want| / max |want| of each gradient."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def scan_bwd_dropped_carry(torch, ins, dy, dh, tc: int):
+    """The planted fault: the plain backward with the carry dL/dh across
+    step tc dropped (the steps before tc see none of the later steps'
+    gradient)."""
+    from repro_torch.kernels.selective_scan.ref import (
+        selective_scan_bwd_ref, selective_scan_ref)
+    x, dt, bm, cm, a, h0 = ins
+    lo = [t[:, :tc] for t in (x, dt, bm, cm)]
+    hi = [t[:, tc:] for t in (x, dt, bm, cm)]
+    _, h_mid = selective_scan_ref(*lo, a, h0)
+    g_hi = selective_scan_bwd_ref(*hi, a, h_mid, dy[:, tc:], dh)
+    g_lo = selective_scan_bwd_ref(*lo, a, h0, dy[:, :tc], None)
+    return ([torch.cat([p, q], 1) for p, q in zip(g_lo[:4], g_hi[:4])]
+            + [g_lo[4] + g_hi[4], g_lo[5]])
+
+
+def scan_bwd_check(torch, label, ins, dy, dh, fault_at):
+    """One case: the kernel's gradients against the plain backward, the
+    saving forward's y and h_last equal to the plain forward kernel's, a
+    second backward bit for bit, and the planted fault (`fault_at`: the
+    carry dropped there) beyond the tolerance. Returns (worst of the
+    gradients in units of SCAN_BWD_TOL, the fault's, largest |kernel -
+    plain|)."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    (y, h), got = scan_bwd_kernel(torch, ins, dy, dh)
+    _, again = scan_bwd_kernel(torch, ins, dy, dh)
+    y0, h0 = selective_scan_fused(*ins)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y0) and torch.equal(h, h0),
+          f"selective_scan ({label}): the saving forward's outputs differ "
+          f"from the forward's")
+    same = [torch.equal(a, b) for a, b in zip(got, again)]
+    check(all(same), f"selective_scan_bwd ({label}): two runs differ in "
+          f"{[n for n, ok in zip(SCAN_BWD_NAMES, same) if not ok]}")
+    want = selective_scan_bwd_ref(*ins, dy, dh)
+    off = scan_bwd_off(got, want)
+    w = max(off) / SCAN_BWD_TOL
+    check(w <= 1.0, f"selective_scan_bwd ({label}) differs from its plain "
+          f"version: " + ", ".join(f"{n} {o:.3e}" for n, o in
+                                   zip(SCAN_BWD_NAMES, off))
+          + f" of max |plain| (tolerance {SCAN_BWD_TOL})")
+    f = math.inf
+    if fault_at is not None:
+        f = max(scan_bwd_off(got, scan_bwd_dropped_carry(
+            torch, ins, dy, dh, fault_at))) / SCAN_BWD_TOL
+        check(f > 1.0, f"selective_scan_bwd ({label}): the planted fault "
+              f"(the carry dropped at step {fault_at}) stays within the "
+              f"tolerance ({f:.3f})")
+    err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
+    return w, f, err, off
+
+
+def selective_scan_bwd_row(torch, rng):
+    """The backward kernel against `selective_scan_bwd_ref` at every N of
+    STATE_SIZES at SCAN_BWD_EDGES from a nonzero h0 and dh_last (S 1; S
+    45 and 100, not multiples of the 32-step chunk; D 77 and 36, a block
+    reaching past D), with dt of 1,000 on every 7th step at N 16 (exp(dt
+    A) underflows to 0: the carry stops there), then at one training
+    microbatch (2 x 4,096 x 3,200 x 16, zero h0 and dh_last as
+    in training); each within SCAN_BWD_TOL, bit for bit on a second run,
+    and a planted fault (the carry dropped at a chunk boundary) beyond
+    it. Timed at the training shape beside the plain backward and the
+    bound: the larger of the bytes (x, dt, B, C, A, the chunk states and
+    dy in, dx, dt, dB, dC, dA out, once) over the HBM rate, and one exp
+    and 12 flops per (b, t, d, n) over the SFU's and the f32 rate. No
+    PyTorch call computes it. Returns the row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan.kernel import (
+        SS_CHUNK, STATE_SIZES, selective_scan_bwd, selective_scan_fused)
+    from repro_torch.kernels.selective_scan.ops import SelectiveScan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    worst, fault, errs, n_cases = 0.0, math.inf, [], 0
+    for n in STATE_SIZES:
+        for b, s, d, label in SCAN_BWD_EDGES:
+            for under in ((False, True) if n == 16 and s > 1 else (False,)):
+                ins = list(scan_inputs(torch, rng, b, s, d, n))
+                if under:
+                    ins[1][:, ::7] = 1000.0
+                dy = normal(torch, rng, (b, s, d), torch.float32)
+                dh = normal(torch, rng, (b, d, n), torch.float32)
+                w, f, e, _ = scan_bwd_check(
+                    torch, f"N {n}, {label}{', underflow' if under else ''}",
+                    ins, dy, dh, SS_CHUNK if s > SS_CHUNK else None)
+                worst, fault = max(worst, w), min(fault, f)
+                errs.append(e)
+                n_cases += 1
+    print(f"selective_scan_bwd edges: {n_cases} cases (N {STATE_SIZES}, "
+          f"S 1 / 45 / 100, D 77 / 36, nonzero h0 and dh_last, exp(dt A) "
+          f"underflowing at N 16) within {worst:.3f} of {SCAN_BWD_TOL} x "
+          f"max |plain|, bit for bit twice; the planted fault (the carry "
+          f"dropped at step {SS_CHUNK}) at least {fault:.1f} of it",
+          flush=True)
+    cfg = get_config(HYMBA_ARCH)
+    b, s = HTRAIN_SEQS // HTRAIN_MICRO, HYMBA_PROMPT
+    d, n = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    ins = list(scan_inputs(torch, rng, b, s, d, n))
+    ins[5] = torch.zeros_like(ins[5])
+    dy = normal(torch, rng, (b, s, d), torch.float32)
+    w, f, e, off = scan_bwd_check(torch, "training shape", ins, dy, None,
+                                  s // 2)
+    errs.append(e)
+    print(f"selective_scan_bwd B {b} S {s} D {d} N {n}: max |kernel - "
+          f"plain| / max |plain| " + ", ".join(
+              f"{nm} {o:.3e}" for nm, o in zip(SCAN_BWD_NAMES, off))
+          + f" ({w:.3f} of the tolerance); bit for bit twice; the planted "
+          f"fault (carry dropped at step {s // 2}) {f:.1f} of it",
+          flush=True)
+    save = saving_forward_row(torch, ins)
+    _, _, chunks = selective_scan_fused(*ins, save_chunks=True)
+    ms = median_ms(torch, lambda: selective_scan_bwd(*ins, chunks, dy, None))
+    plain_ms = median_ms(torch, lambda: selective_scan_bwd_ref(
+        *ins, dy, None), 1)
+    leaves = [t.clone().requires_grad_() for t in ins[:5]]
+    y, _ = SelectiveScan.apply(*leaves, ins[5])
+
+    def dispatch():
+        torch.autograd.backward([y], [dy], retain_graph=True)
+    dispatch_ms = median_ms(torch, dispatch)
+    elems = b * s * d * n
+    t_bytes = 4 * (3 * ins[0].numel() + 2 * ins[1].numel()
+                   + 4 * ins[2].numel() + 2 * ins[4].numel()
+                   + chunks.numel()) / HBM_BYTES_PER_S
+    t_ops = max(elems / EXP_PER_S, 12 * elems / OPS_PER_S)
+    bnd = ((t_ops * 1e3, "operations") if t_ops >= t_bytes
+           else (t_bytes * 1e3, "bytes"))
+    print(f"selective_scan_bwd at the training shape: {ms:.6f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd[0]:.7f} ms by {bnd[1]} (bytes "
+          f"{t_bytes * 1e3:.7f}, operations {t_ops * 1e3:.7f})", flush=True)
+    del ins, dy, chunks, leaves, y
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(errs), lanes=b * d, ms=ms, plain_ms=plain_ms,
+                library_ms=None, dispatch_ms=dispatch_ms, bound=bnd,
+                save=save)
+
+
+def plain_saving_forward(torch, ins):
+    """The saving forward's plain version: the chunked scan one SS_CHUNK
+    window at a time, each from the state the last one left, keeping the
+    state entering each window. Returns (y, h_last, chunk states)."""
+    from repro_torch.kernels.selective_scan.kernel import SS_CHUNK
+    from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
+    x, dt, bm, cm, a, h = ins
+    ys, states = [], []
+    for lo in range(0, x.shape[1], SS_CHUNK):
+        states.append(h)
+        y, h = selective_scan_chunked(
+            *(t[:, lo:lo + SS_CHUNK] for t in (x, dt, bm, cm)), a, h,
+            chunk=SS_CHUNK)
+        ys.append(y)
+    return torch.cat(ys, 1), h, torch.stack(states, 1)
+
+
+def saving_forward_row(torch, ins):
+    """The forward kernel as autograd launches it (`save_chunks`: it also
+    writes the state entering every 32 steps) at the training microbatch
+    `ins`: y, h_last and the chunk states within 1e-4 of the largest |y|,
+    |h| and |state| of `plain_saving_forward` (f32; other orders of
+    sums), timed beside it. The bound: the larger of the bytes (x, y, dt,
+    B, C, A, h0, h_last and the chunk states once) over the HBM rate and
+    one exp and six flops per (b, t, d, n) over the SFU's and the f32
+    rate. Returns the row, its `shape` named."""
+    from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
+    got = selective_scan_fused(*ins, save_chunks=True)
+    torch.cuda.synchronize()
+    want = plain_saving_forward(torch, ins)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    off = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+    check(max(off) <= 1e-4, "selective_scan (saving forward) differs from "
+          "its plain version: y, h_last, chunk states " + ", ".join(
+              f"{o:.3e}" for o in off) + " of max |plain|")
+    x, dt, bm, _, a, h0 = ins
+    b, s, d = x.shape
+    n = bm.shape[-1]
+    chunks = got[2]
+    elems = b * s * d * n
+    t_bytes = 4 * (2 * x.numel() + dt.numel() + 2 * bm.numel() + a.numel()
+                   + 2 * h0.numel() + chunks.numel()) / HBM_BYTES_PER_S
+    t_ops = max(elems / EXP_PER_S, 6 * elems / OPS_PER_S)
+    bnd = ((t_ops * 1e3, "operations") if t_ops >= t_bytes
+           else (t_bytes * 1e3, "bytes"))
+    r = dict(max_abs_err=max(errs), lanes=b * d,
+             ms=median_ms(torch, lambda: selective_scan_fused(
+                 *ins, save_chunks=True)),
+             plain_ms=median_ms(torch, lambda: plain_saving_forward(
+                 torch, ins), 3),
+             library_ms=None, bound=bnd,
+             shape=(f"the saving forward (save_chunks, under autograd) at "
+                    f"{HYMBA_ARCH}'s training microbatch: B {b}, S {s}, D "
+                    f"{d}, N {n}"))
+    print(f"kernel selective_scan at {r['shape']}: {r['ms']:.6f} ms (plain "
+          f"{r['plain_ms']:.6f}, bound {bnd[0]:.7f} ms by {bnd[1]}); max "
+          f"|kernel - plain| / max |plain| y, h_last, chunk states "
+          + ", ".join(f"{o:.3e}" for o in off), flush=True)
+    del got, want
     return r
 
 
@@ -4262,6 +4626,134 @@ def hymba_check_a(torch, cfg, params, toks):
     return int(gen.numel()), int((~wide).sum()), cache_err, fault_err
 
 
+# phases 5 and 10: a few decode steps with kv_cache_dtype float8_e4m3fn
+# beside bfloat16 from the same prompts (the phase's first FP8_PROMPT
+# tokens), teacher-forced on the bf16 run's greedy tokens. The fp8 cache
+# holds half the bytes. Two limits, each on a step's max |logit
+# difference| over the bf16 run's max |logit|: against a bf16 cache
+# holding the values rounded to fp8 (`cache_writes("grid")`: the same
+# values, so only the storage differs) within FP8_GRID_LIMIT, and against
+# the bf16 cache within FP8_LOGIT_LIMIT, between the sound readings on
+# the H100 (0.0855 hymba, 0.0460 minicpm3-4b) and those of the planted
+# fault, each decode step's fp8 entry left unwritten
+# (`cache_writes("unwritten")`: 0.1536 and 0.1280), which must exceed
+# both
+FP8_PROMPT = 1024
+FP8_STEPS = 8
+FP8_GRID_LIMIT = 1e-3
+FP8_LOGIT_LIMIT = 0.11
+
+
+@contextlib.contextmanager
+def cache_writes(torch, how: str, at: list):
+    """Every cache write (`models.attention.to_cache`) changed: "grid"
+    rounds the values to float8_e4m3fn and back first (torch's cast; the
+    model's values lie far inside its range), "unwritten" (the planted
+    fault) leaves the position `at[0]`, while a decode step sets it, as
+    the prefill left it, zero, so the step's new k/v (or latent and rope
+    key) never enter the cache."""
+    from repro_torch.models import attention
+    real = attention.to_cache
+
+    def write(x, dtype):
+        if how == "grid":
+            x = x.to(torch.float8_e4m3fn).to(x.dtype)
+        elif at[0] is not None:
+            x = x.clone()
+            x[:, at[0]] = 0
+        return real(x, dtype)
+    attention.to_cache = write
+    try:
+        yield
+    finally:
+        attention.to_cache = real
+
+
+def fp8_cache_decode(torch, label, cfg, params, toks, names):
+    """Prefill toks[:, :FP8_PROMPT] and decode FP8_STEPS steps with the
+    `names` cache leaves in bf16, in fp8 (the reference's
+    `kv_cache_dtype` lever), in bf16 holding fp8-rounded values and in
+    fp8 with the planted fault (`cache_writes`): their bytes, ms a decode
+    step, and each step's max |logit difference| over the bf16 run's max
+    |logit|, fp8 within FP8_GRID_LIMIT of the rounded run and
+    FP8_LOGIT_LIMIT of bf16, the fault beyond both. Returns the reading."""
+    from repro_torch.models import model as M
+    b = toks.shape[0]
+    prompt = toks[..., :FP8_PROMPT]
+    cache_len = FP8_PROMPT + FP8_STEPS
+    feed, runs = None, {}
+    for run, kt in (("bf16", "bfloat16"), ("fp8", "float8_e4m3fn"),
+                    ("grid", "bfloat16"), ("unwritten", "float8_e4m3fn")):
+        c = cfg.replace(kv_cache_dtype=kt)
+        at = [None]
+        with torch.no_grad(), (cache_writes(torch, run, at) if run in (
+                "grid", "unwritten") else contextlib.nullcontext()):
+            lg, caches, _ = M.prefill(params, c, prompt, cache_len)
+            logits = [lg[:, -1, :cfg.vocab_size].float()]
+            nbytes = sum(leaf.numel() * leaf.element_size()
+                         for per in caches for n, leaf in per.items()
+                         if n in names)
+            dtypes = {str(leaf.dtype) for per in caches
+                      for n, leaf in per.items() if n in names}
+            toks_fed = [torch.argmax(logits[0], -1)] if feed is None \
+                else feed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(FP8_STEPS):
+                at[0] = FP8_PROMPT + i
+                pos = torch.full((b,), FP8_PROMPT + i, device=DEV)
+                lg, caches = M.decode_step(params, c, toks_fed[i][:, None],
+                                           pos, caches)
+                logits.append(lg[:, 0, :cfg.vocab_size].float())
+                if feed is None:
+                    toks_fed.append(torch.argmax(logits[-1], -1))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / FP8_STEPS
+        feed = toks_fed
+        runs[run] = dict(bytes=nbytes, ms=ms, logits=logits, dtypes=dtypes)
+        del caches
+    scale = [float(r.abs().max()) for r in runs["bf16"]["logits"]]
+
+    def off(run, ref):
+        return [float((g - r).abs().max()) / m for g, r, m in zip(
+            runs[run]["logits"], runs[ref]["logits"], scale)]
+    fp8, fp8_grid = off("fp8", "bf16"), off("fp8", "grid")
+    fault, fault_grid = off("unwritten", "bf16"), off("unwritten", "grid")
+    agree = sum(int((torch.argmax(g, -1) == torch.argmax(r, -1)).sum())
+                for g, r in zip(runs["fp8"]["logits"],
+                                runs["bf16"]["logits"]))
+    bf_b, f8_b = runs["bf16"]["bytes"], runs["fp8"]["bytes"]
+
+    def steps(o):
+        return json.dumps([float(f"{x:.3e}") for x in o])
+    print(f"{label} fp8 cache ({'/'.join(names)}): {f8_b} bytes against "
+          f"bf16's {bf_b} ({f8_b / bf_b:.3f}x), {b} x {FP8_PROMPT} tokens "
+          f"+ {FP8_STEPS} decode steps: {runs['fp8']['ms']:.3f} ms a step "
+          f"against {runs['bf16']['ms']:.3f}; logits max |difference| / "
+          f"max |bf16| by step: fp8 - bf16 {steps(fp8)} (limit "
+          f"{FP8_LOGIT_LIMIT}), fp8 - fp8-rounded bf16 {steps(fp8_grid)} "
+          f"(limit {FP8_GRID_LIMIT}); argmax equal on {agree} of "
+          f"{b * (FP8_STEPS + 1)}; the planted fault (each decode step's "
+          f"entry unwritten) - bf16 {steps(fault)}, - fp8-rounded bf16 "
+          f"{steps(fault_grid)}", flush=True)
+    check(runs["fp8"]["dtypes"] == {"torch.float8_e4m3fn"},
+          f"{label} fp8 cache dtypes {runs['fp8']['dtypes']}")
+    check(2 * f8_b == bf_b, f"{label}: fp8 cache {f8_b} bytes, bf16 {bf_b}")
+    check(all(math.isfinite(o) for o in fp8), f"{label}: fp8 logits finite")
+    for name, o, lim in (("bf16", fp8, FP8_LOGIT_LIMIT),
+                         ("fp8-rounded bf16", fp8_grid, FP8_GRID_LIMIT)):
+        check(max(o) <= lim, f"{label}: fp8-cache logits {max(o):.3e} of "
+              f"max |logit| from the {name} cache's (limit {lim})")
+    check(max(fault) > FP8_LOGIT_LIMIT and max(fault_grid) > FP8_GRID_LIMIT,
+          f"{label}: the planted fault (each decode step's fp8 entry "
+          f"unwritten) stays within a limit ({max(fault):.3e}, "
+          f"{max(fault_grid):.3e})")
+    return {"fp8_bytes": f8_b, "bf16_bytes": bf_b,
+            "fp8_ms": runs["fp8"]["ms"], "bf16_ms": runs["bf16"]["ms"],
+            "logit_off": max(fp8), "grid_off": max(fp8_grid),
+            "fault_off": max(fault), "fault_grid_off": max(fault_grid)}
+
+
 def hymba_phase(torch, seed: int):
     """hymba-1.5b at full width and depth (32 layers), seeded f32
     parameters with a bf16 compute copy drawn on the card, attn_impl
@@ -4386,6 +4878,8 @@ def hymba_phase(torch, seed: int):
           f"{json.dumps(HYMBA_A_CACHE_TOL)}; the prefill one token short: "
           f"{fmt(fault_err)}) ({time.perf_counter() - t0:.3f} s)",
           flush=True)
+    report["fp8"] = fp8_cache_decode(torch, "hymba", cfg, params, toks,
+                                     ("k", "v"))
     del params
     torch.cuda.empty_cache()
     return launches, report
@@ -5722,12 +6216,13 @@ def lm_check_b(torch, label, cfg, params, bound, fault,
 
 def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
              b_bound, b_fault, a_ctx=contextlib.nullcontext,
-             b_ctx=contextlib.nullcontext):
+             b_ctx=contextlib.nullcontext, fp8_names=()):
     """One arch at full width and depth: seeded f32 parameters with a
     bf16 copy drawn on the card, the served run (`lm_served`), then
     checks (a) and (b) with their planted faults (a cache transform run
-    before the faulted decode steps, and a context they run in). Returns
-    (launches, report)."""
+    before the faulted decode steps, and a context they run in), and with
+    `fp8_names` a few decode steps with those cache leaves in fp8
+    (`fp8_cache_decode`). Returns (launches, report)."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     label = arch
@@ -5759,6 +6254,8 @@ def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
           f"reckoned {reckoned}")
 
     report, launches = lm_served(torch, label, cfg, params, toks)
+    if fp8_names:
+        fp8_toks = toks[:, :FP8_PROMPT].clone()
     del toks
     report.update(weights_gb=weights_gb, params=n_params)
     cache_len = LM_PROMPT + LM_NEW
@@ -5807,6 +6304,11 @@ def lm_phase(torch, seed, arch, a_layers, a_prompt, a_tol, a_fault,
           + f" ({time.perf_counter() - t0:.3f} s)", flush=True)
     report.update(a=a_errs, a_fault=a_fault_errs, b=b_errs,
                   b_fault=b_fault_errs)
+    if fp8_names:
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["fp8"] = fp8_cache_decode(torch, label, cfg, params, fp8_toks,
+                                         fp8_names)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5869,7 +6371,8 @@ def mla_phase(torch, seed: int):
     cfg = get_config(MLA_ARCH)
     return lm_phase(torch, seed, MLA_ARCH, MLA_A_LAYERS, MLA_A_PROMPT,
                     MLA_A_TOL, functools.partial(kpe_one_late, torch, cfg),
-                    MLA_B_TOL, functools.partial(latent_one_late, torch, cfg))
+                    MLA_B_TOL, functools.partial(latent_one_late, torch, cfg),
+                    fp8_names=("ckv", "kpe"))
 
 
 # ---------------------------------------------------------------------------
@@ -6511,6 +7014,200 @@ def pods_phase(torch, seed: int) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 15: hymba-1.5b trained on the card, and the launchers
+# ---------------------------------------------------------------------------
+
+# hymba-1.5b at full width and depth (32 layers, d_model 1,600, d_inner
+# 3,200, N 16; f32 parameters and AdamW moments, bf16 compute, remat,
+# attn_impl "xla" as the reference trains) through `train()` in exec mode
+# gpu: `SHAPES["train_4k"]` cut to 4 sequences of 4,096 tokens a step (the
+# global batch of 256 cut to what leaves the phase ~1 minute; the
+# remat'd "xla" attention's f32 score chain of one 2-sequence microbatch
+# and the f32 logits fit beside the 26 GB of parameters, gradients and
+# moments), 2 microbatches, 3 steps. Each microbatch runs the scan's
+# forward kernel twice a layer (the forward, and remat's recompute before
+# the backward) and its backward kernel once
+HTRAIN_SEQS = 4
+HTRAIN_MICRO = 2
+HTRAIN_STEPS = 3
+# step 1 in exec mode gpu against exec mode torch (the plain chunked scan
+# under autograd) from the same weights at full width and
+# HTRAIN_PARITY_LAYERS layers on one 4,096-token sequence: loss and
+# gradient norm within these relative limits. The two scans differ in f32
+# summation order and in ex2.approx against expf, and every layer rounds
+# its output to bf16, where a tiny difference tips a rounding now and
+# then
+HTRAIN_PARITY_LAYERS = 4
+HTRAIN_PARITY_LOSS_RTOL = 1e-3
+HTRAIN_PARITY_GNORM_RTOL = 1e-2
+
+
+def hymba_train_run(torch, cfg, seed: int) -> tuple:
+    """The main run; returns (launches, report)."""
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.train.loop import train
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=HTRAIN_SEQS)
+    params = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed))
+    n_params = sum(p.numel() for p in params.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, out = train(cfg, shape, steps=HTRAIN_STEPS, seed=seed,
+                             microbatches=HTRAIN_MICRO, log_every=1,
+                             device=DEV, params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    hist = out["history"]
+    check([h["step"] for h in hist] == list(range(HTRAIN_STEPS)),
+          f"hymba train: steps {[h['step'] for h in hist]}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"hymba train: non-finite loss or grad norm "
+          f"{hist}")
+    check(int(opt["adam"]["step"]) == HTRAIN_STEPS,
+          f"hymba train: adam step {int(opt['adam']['step'])}")
+    micro = HTRAIN_STEPS * HTRAIN_MICRO
+    want = {"selective_scan": 2 * cfg.n_layers * micro,
+            "selective_scan/save": 2 * cfg.n_layers * micro,
+            "selective_scan_bwd": cfg.n_layers * micro}
+    check(launches == want, f"hymba train: launches {launches}, want "
+          f"{want} (the scan's saving forward twice a layer and "
+          f"microbatch, with remat, and its backward once; no other "
+          f"kernel)")
+    tokens = shape.global_batch * shape.seq_len
+    step_s = statistics.fmean(h["time"] for h in hist[1:])
+    print(f"hymba train: {cfg.name} {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.ssm_expand * cfg.d_model}, N "
+          f"{cfg.ssm_state}, {n_params} parameters ({cfg.param_dtype}, "
+          f"{cfg.compute_dtype} compute, remat {cfg.remat}, attn_impl "
+          f"{cfg.attn_impl}, exec mode gpu); {shape.name} cut to "
+          f"{shape.global_batch} x {shape.seq_len} = {tokens} tokens a "
+          f"step, {HTRAIN_MICRO} microbatches; {HTRAIN_STEPS} steps in "
+          f"{wall:.3f} s", flush=True)
+    print(f"hymba train: losses {[h['loss'] for h in hist]}, grad norms "
+          f"{[h['grad_norm'] for h in hist]}; launches {json.dumps(launches)}"
+          f" ({cfg.n_layers} layers x {micro} microbatches)", flush=True)
+    print(f"hymba train: {step_s * 1e3:.3f} ms a step (steps "
+          f"1-{HTRAIN_STEPS - 1}; by step "
+          f"{[round(h['time'] * 1e3, 3) for h in hist]}), "
+          f"{tokens / step_s:.1f} tokens/s; peak {peak:.3f} GiB; card "
+          f"{card_line()}", flush=True)
+    del params, opt, out
+    return launches, {"ms_per_step": step_s * 1e3,
+                      "tokens_per_s": tokens / step_s, "peak_gib": peak}
+
+
+def hymba_train_parity(torch, cfg, seed: int) -> dict:
+    """Step 1 in exec modes gpu and torch from the same weights and batch
+    (full width, HTRAIN_PARITY_LAYERS layers, one 4,096-token sequence):
+    loss and gradient norm."""
+    from repro_torch import exec as exec_
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import synth_batch
+    from repro_torch.kernels import cuda
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = cfg.replace(n_layers=HTRAIN_PARITY_LAYERS)
+    shape = ShapeConfig("parity", HYMBA_PROMPT, 1, "train")
+    init = M.init_params(cfg, torch.Generator(DEV).manual_seed(seed + 1))
+    batch = synth_batch(cfg, shape, seed, 0, device=DEV)
+    out = {}
+    for mode in ("gpu", "torch"):
+        p = copy.deepcopy(init)
+        p.make_trainable()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        with exec_.exec_mode(mode):
+            _, _, m = make_train_step(cfg)(p, {"adam": adamw_init(p)},
+                                           batch)
+            out[mode] = (float(m["loss"]), float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        out[mode] += (time.perf_counter() - t0,
+                      {k: v for k, v in cuda.LAUNCHES.items() if v})
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    (gl, gg, gt, g_l), (tl, tg, tt, t_l) = out["gpu"], out["torch"]
+    check(g_l == {"selective_scan": 2 * cfg.n_layers,
+                  "selective_scan/save": 2 * cfg.n_layers,
+                  "selective_scan_bwd": cfg.n_layers} and not t_l,
+          f"hymba train parity: launches gpu {g_l}, torch {t_l}")
+    lerr, gerr = abs(gl - tl) / abs(tl), abs(gg - tg) / abs(tg)
+    print(f"hymba train step 1, gpu vs torch mode: {cfg.n_layers} layers, 1 "
+          f"x {HYMBA_PROMPT} tokens, {cfg.compute_dtype} compute: loss {gl} "
+          f"vs {tl} (rel {lerr:.3e}, limit {HTRAIN_PARITY_LOSS_RTOL}), "
+          f"grad norm {gg} vs {tg} (rel {gerr:.3e}, limit "
+          f"{HTRAIN_PARITY_GNORM_RTOL}); step {gt:.3f} s vs {tt:.3f} s",
+          flush=True)
+    check(math.isfinite(gl) and math.isfinite(gg), "hymba parity: finite")
+    check(lerr <= HTRAIN_PARITY_LOSS_RTOL, f"hymba parity: loss rel {lerr}")
+    check(gerr <= HTRAIN_PARITY_GNORM_RTOL,
+          f"hymba parity: grad norm rel {gerr}")
+    return {"loss_rel": lerr, "gnorm_rel": gerr}
+
+
+def launchers_on_card(torch) -> dict:
+    """`launch.serve` on the reduced qwen3-1.7b as it is (head_dim 16, G
+    2: the paged kernel at D 16) and `launch.train` on the reduced
+    hymba-1.5b (the scan's backward kernel), both on the card. Returns
+    each one's launches."""
+    import io
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    out = {}
+    for name, mod, argv, want in (
+            ("serve", lserve, ["--arch", "qwen3-1.7b", "--requests", "3",
+                               "--max-new", "4"], "served 3 requests"),
+            ("train", ltrain, ["--arch", "hymba-1.5b", "--steps", "2",
+                               "--seq", "64", "--batch", "2"],
+             "final loss")):
+        buf = io.StringIO()
+        cuda.reset_launches()
+        with contextlib.redirect_stdout(buf):
+            mod.main(argv)
+        torch.cuda.synchronize()
+        out[name] = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        text = buf.getvalue().strip().splitlines()[-1]
+        check(want in text, f"launch.{name}: {text}")
+        print(f"launch.{name} {' '.join(argv)}: {text}; launches "
+              f"{json.dumps(out[name])}", flush=True)
+    check(out["serve"].get("paged_attention", 0) > 0,
+          "launch.serve launched no paged_attention")
+    check(out["train"].get("selective_scan_bwd", 0) == 2 * 2,
+          f"launch.train hymba: launches {out['train']}")
+    return out
+
+
+def hymba_train_phase(torch, seed: int):
+    """Phase 15: hymba-1.5b's main training run, step 1 against exec mode
+    torch, then the two launchers. Returns (launches, report), the
+    launches those of the main run and of the serve launcher's paged
+    decode (`paged_attention/reduced`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(HYMBA_ARCH)
+    check((cfg.param_dtype, cfg.compute_dtype, cfg.remat, cfg.attn_impl,
+           cfg.ssm_scan_dtype) == ("float32", "bfloat16", True, "xla",
+                                   "float32"),
+          f"not the reference's train configuration: {cfg}")
+    launches, report = hymba_train_run(torch, cfg, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(hymba_train_parity(torch, cfg, seed))
+    gc.collect()
+    torch.cuda.empty_cache()
+    more = launchers_on_card(torch)
+    launches = dict(launches)
+    launches["paged_attention/reduced"] = more["serve"]["paged_attention"]
+    return launches, report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6599,15 +7296,38 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     done()
+    done = phase("15 hymba training and the launchers")
+    more, _ = hymba_train_phase(torch, args.seed)
+    reduced_launches = more.pop("paged_attention/reduced")
+    for k, v in more.items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    done()
 
+    # the scan's saving forward has a row of its own
+    launches["selective_scan"] -= launches.get("selective_scan/save", 0)
     out = []
     for name, source, replaces in KERNELS:
         r = rows[name]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[name],
+                    "replaces": replaces, "launches": launches.get(name, 0),
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    for name, r, n in (
+            ("paged_attention", rows["paged_attention"]["reduced"],
+             reduced_launches),
+            ("selective_scan", rows["selective_scan_bwd"]["save"],
+             launches.get("selective_scan/save", 0))):
+        source, replaces = next((s, rp) for k, s, rp in KERNELS
+                                if k == name)
+        out.append({"name": name, "shape": r["shape"], "route": "cuda",
+                    "source": source, "replaces": replaces, "launches": n,
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1],
                     "library_ms": r["library_ms"]})
     out.extend(moe_rows + dense_rows)
     print(card_line(), flush=True)

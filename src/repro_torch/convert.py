@@ -202,12 +202,16 @@ def tree_map(fn, tree):
 
 
 def _tensor(x, device) -> torch.Tensor:
-    """A numpy leaf as a tensor; bfloat16 through its bits, u64 and u32 as
+    """A numpy leaf as a tensor; bfloat16 and float8_e4m3fn (ml_dtypes,
+    which `torch.from_numpy` refuses) through their bits, u64 and u32 as
     the int64 / int32 views of the same bits."""
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(np.array(a.view(np.int16), copy=True)).view(
             torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a.view(np.uint8), copy=True)).view(
+            torch.float8_e4m3fn).to(device)
     return _leaf_in(a, device)
 
 
@@ -268,7 +272,7 @@ def caches_from_jax(tree, device="cuda") -> tuple:
     a tuple over the period of dicts stacked `[n_groups, ...]`, e.g.
     hymba's ({"k", "v", "conv", "ssm"},), xLSTM's seven mlstm dicts and
     one slstm dict) as the port's, on `device`, dtypes
-    kept (bfloat16 through its bits)."""
+    kept (bfloat16 and float8_e4m3fn through their bits)."""
     dev = resolve_device(device)
     return tuple({name: _tensor(leaf, dev) for name, leaf in c.items()}
                  for c in tree)
@@ -276,11 +280,12 @@ def caches_from_jax(tree, device="cuda") -> tuple:
 
 def caches_to_numpy(caches) -> tuple:
     """The port's contiguous caches -> the same structure with numpy
-    leaves; bfloat16 leaves come back as their float32 values (exact:
-    the reference takes them back with `.astype(jnp.bfloat16)`)."""
+    leaves; bfloat16 and float8_e4m3fn leaves come back as their float32
+    values (exact: the reference takes them back with `.astype`)."""
     def leaf(t):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return (t.float() if t.dtype in (torch.bfloat16, torch.float8_e4m3fn)
+                else t).numpy()
     return tuple({name: leaf(t) for name, t in c.items()} for c in caches)
 
 

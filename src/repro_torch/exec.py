@@ -63,12 +63,18 @@ def gpu_tensors(name: str, *tensors) -> None:
 
 
 def no_autograd(kernel: str, *tensors) -> None:
-    """A forward-only kernel refuses inputs that autograd tracks: it has
-    no backward, and the reference has none either (it trains through its
-    plain path), so nothing may switch to the plain version quietly."""
+    """A forward-only kernel (flash_attention) refuses inputs that
+    autograd tracks: it has no backward, and the reference has none
+    either (it trains through its plain path), so nothing may switch to
+    the plain version quietly."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"the {kernel} CUDA kernel is forward-only: exec mode 'gpu' does "
-            f"not differentiate through it. Train through the reference's "
-            f"plain path instead: attn_impl='xla', or exec mode 'torch'")
+        raise forward_only(kernel)
+
+
+def forward_only(kernel: str) -> NotImplementedError:
+    """The refusal of a forward-only kernel under autograd."""
+    return NotImplementedError(
+        f"the {kernel} CUDA kernel is forward-only: exec mode 'gpu' does "
+        f"not differentiate through it. Train through the reference's "
+        f"plain path instead: attn_impl='xla', or exec mode 'torch'")

@@ -36,9 +36,10 @@
 //   PA_STAGES - 1 pages are in flight while one is scored.
 // - One softmax update per page. The block scores the whole page for all
 //   G query heads (8 threads per token, each a 16-byte slice of the row,
-//   shuffle-reduced), then one warp per head takes the page's max, the
-//   rescale and the weights (one lane per token), then each thread adds
-//   the weighted V column it owns for its heads.
+//   shuffle-reduced; fewer where a row has fewer slices: 2 for a bf16 row
+//   of 16, the reduced configs' heads), then one warp per head takes the
+//   page's max, the rescale and the weights (one lane per token), then
+//   each thread adds the weighted V column it owns for its heads.
 // - A merge. Each split writes its (m, l, acc) in f32 to scratch; a second
 //   kernel, launched by the same launcher, combines the splits of each
 //   (request, KV head) in f32 and writes q's type. A split with no live
@@ -111,7 +112,8 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(
     int n_split, float scale) {
   constexpr int VEC = 16 / sizeof(T);   // elements of a 16-byte chunk
   constexpr int NCH = D / VEC;          // chunks of a row
-  constexpr int CPP = NCH / 8;          // chunks of a row a scoring thread
+  constexpr int TPT = NCH < 8 ? NCH : 8;  // scoring threads a token
+  constexpr int CPP = NCH / TPT;        // chunks of a row a scoring thread
   constexpr int R = PA_THREADS / D;     // threads of one V column
   constexpr int GT = (G + R - 1) / R;   // heads a thread accumulates
   constexpr int GW = (G + 3) / 4;       // heads a warp weighs
@@ -165,7 +167,7 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(
     cp_async_commit();
   };
 
-  const int part = tid % 8, tok = tid / 8;          // scoring
+  const int part = tid % TPT, tok = tid / TPT;      // scoring
   const int warp = tid / 32, lane = tid % 32;       // weighing
   const int col = tid % D, g0 = tid / D;            // accumulating
   float m_r[GW], l_r[GW], acc[GT];
@@ -186,26 +188,35 @@ __global__ void __launch_bounds__(PA_THREADS) paged_split_kernel(
     const int nv = min(page, len - list_j[i] * page);
     const T* ks = ring + (size_t)(i % PA_STAGES) * 2 * page * D;
     const T* vs = ks + page * D;
-    // scores: 8 threads a token, thread `part` on chunks part + 8c (a
-    // quarter warp reads one contiguous 128 bytes); every thread runs the
-    // same trips so the shuffles stay convergent
-    for (int t = tok; t - tok < page; t += PA_THREADS / 8) {
+    // scores: TPT threads a token (8, or a whole row's 16-byte chunks
+    // when a row has fewer: 2 a token for bf16 rows of 16), thread `part`
+    // on chunks part + TPT c (at D >= 64 a quarter warp reads one
+    // contiguous 128 bytes); every thread runs the same trips so the
+    // shuffles stay convergent, and only tokens below nv are read (at
+    // D 16 a pass covers 64 tokens, past the page's slot)
+    for (int t = tok; t - tok < page; t += PA_THREADS / TPT) {
       float kf[CPP][VEC];
 #pragma unroll
-      for (int c = 0; c < CPP; ++c)
-        load16(ks + t * D + (part + 8 * c) * VEC, kf[c]);
+      for (int c = 0; c < CPP; ++c) {
+        if (t < nv) {
+          load16(ks + t * D + (part + TPT * c) * VEC, kf[c]);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) kf[c][v] = 0.f;
+        }
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float a = 0.f;
 #pragma unroll
         for (int c = 0; c < CPP; ++c) {
-          const float* qv = q_s + g * D + (part + 8 * c) * VEC;
+          const float* qv = q_s + g * D + (part + TPT * c) * VEC;
 #pragma unroll
           for (int v = 0; v < VEC; ++v) a = fmaf(qv[v], kf[c][v], a);
         }
-        a += __shfl_xor_sync(0xffffffffu, a, 1);
-        a += __shfl_xor_sync(0xffffffffu, a, 2);
-        a += __shfl_xor_sync(0xffffffffu, a, 4);
+#pragma unroll
+        for (int o = 1; o < TPT; o <<= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, o);
         if (part == 0 && t < nv) sc[g * PA_MAX_PAGE + t] = a * scale;
       }
     }
@@ -344,8 +355,8 @@ static int launch_d(int g, dim3 grid, cudaStream_t st, const void* q,
 // G * 2] and acc [B * Hkv * n_split * G * D] are f32 scratch; split s owns
 // table entries [s * pps, (s + 1) * pps), pps = ceil(P / n_split). The
 // wrapper checks the shapes; the checks here refuse what the kernel cannot
-// take: D 64 or 128, a page of 1..32 tokens, at most PA_MAX_PPS entries a
-// split, G in (1, 2, 4, 5, 8, 16).
+// take: D 16, 32, 64 or 128, a page of 1..32 tokens, at most PA_MAX_PPS
+// entries a split, G in (1, 2, 4, 5, 8, 16).
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* tables,
                                       const void* lengths, void* out,
@@ -363,12 +374,15 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
 #define PA_ARGS                                                          \
   g, grid, st, q, k_pool, v_pool, tables, lengths, out, ml, acc, b, hkv, \
       page, p, pps, n_split, scale
-  if (d == 64)
-    return is_bf16 ? launch_d<__nv_bfloat16, 64>(PA_ARGS)
-                   : launch_d<float, 64>(PA_ARGS);
-  if (d == 128)
-    return is_bf16 ? launch_d<__nv_bfloat16, 128>(PA_ARGS)
-                   : launch_d<float, 128>(PA_ARGS);
+#define PA_D(DD)                                          \
+  if (d == DD)                                            \
+    return is_bf16 ? launch_d<__nv_bfloat16, DD>(PA_ARGS) \
+                   : launch_d<float, DD>(PA_ARGS);
+  PA_D(16)
+  PA_D(32)
+  PA_D(64)
+  PA_D(128)
+#undef PA_D
 #undef PA_ARGS
   return (int)cudaErrorInvalidValue;
 }

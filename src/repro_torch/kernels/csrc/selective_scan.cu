@@ -34,145 +34,32 @@
 //     SS_SLOTS buffers, two chunks ahead of the recurrence, with one block
 //     barrier a chunk.
 //   * h0, A and h_last move as contiguous float4s per lane.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define SS_THREADS 128
-#define SS_PER 8                  // states a lane, at most
-#define SS_CHUNK 32
-#define SS_SLOTS 3
-#define SS_LOG2E 1.4426950408889634f
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// cp.async of 4 or 16 bytes; with `valid` false the destination is zero
-// filled and nothing is read.
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool valid) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp16(float* dst, const float* src,
-                                     bool valid) {
-  unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int PENDING>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return ((uintptr_t)p & 15) == 0;
-}
-
-// PER contiguous floats at src (or zeros when src is null).
-template <int PER>
-__device__ __forceinline__ void load_row(float (&v)[PER], const float* src,
-                                         bool vec) {
-#pragma unroll
-  for (int k = 0; k < PER; k += 4) {
-    if (src == nullptr) {
-      v[k] = v[k + 1] = v[k + 2] = v[k + 3] = 0.f;
-    } else if (vec) {
-      float4 f = *reinterpret_cast<const float4*>(src + k);
-      v[k] = f.x, v[k + 1] = f.y, v[k + 2] = f.z, v[k + 3] = f.w;
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[k + j] = src[k + j];
-    }
-  }
-}
-
-// Copy rows [0, steps) of a tile whose rows hold `w` units of UNIT floats:
-// unit (t, u) goes from src + t * src_stride + UNIT * u to dst + t * w * UNIT
-// + UNIT * u, zero filled where `col_ok(u)` is false. Threads take units in
-// row-major order, so a warp copies consecutive units of a row.
-template <int UNIT, typename Ok>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
-                                          size_t src_stride, int steps, int w,
-                                          Ok col_ok) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if (nt >= w) {                             // whole rows per pass
-    const int u = tid % w, rows = nt / w;
-    if (tid >= rows * w) return;
-    const bool ok = col_ok(u);
-    for (int t = tid / w; t < steps; t += rows) {
-      float* to = dst + (t * w + u) * UNIT;
-      const float* from = ok ? src + t * src_stride + u * UNIT : src;
-      if (UNIT == 4) cp16(to, from, ok); else cp4(to, from, ok);
-    }
-  } else {
-    for (int t = 0; t < steps; ++t)
-      for (int u = tid; u < w; u += nt) {
-        const bool ok = col_ok(u);
-        float* to = dst + (t * w + u) * UNIT;
-        const float* from = ok ? src + t * src_stride + u * UNIT : src;
-        if (UNIT == 4) cp16(to, from, ok); else cp4(to, from, ok);
-      }
-  }
-}
-
-// One buffer of the staging ring: dt[SS_CHUNK], B and C [SS_CHUNK][N],
-// x [SS_CHUNK][ch] (ch = the block's channels). Only the chunk's `steps`
-// rows are copied: the recurrence reads no others.
-template <int N>
-__device__ __forceinline__ void stage_chunk(
-    float* buf, int ch, const float* __restrict__ x,
-    const float* __restrict__ dt, const float* __restrict__ bmat,
-    const float* __restrict__ cmat, int b, int s, int d, int d0, int t0,
-    bool vec_bc, bool vec_x) {
-  const int steps = min(SS_CHUNK, s - t0);
-  const size_t row = (size_t)b * s + t0;     // (b, t0) in [B, S]
-  float* dts = buf;
-  float* bs = dts + SS_CHUNK;
-  float* cs = bs + SS_CHUNK * N;
-  float* xs = cs + SS_CHUNK * N;
-  auto all = [](int) { return true; };
-  copy_rows<1>(dts, dt + row, 1, steps, 1, all);
-  if (vec_bc) {
-    copy_rows<4>(bs, bmat + row * N, N, steps, N / 4, all);
-    copy_rows<4>(cs, cmat + row * N, N, steps, N / 4, all);
-  } else {
-    copy_rows<1>(bs, bmat + row * N, N, steps, N, all);
-    copy_rows<1>(cs, cmat + row * N, N, steps, N, all);
-  }
-  const float* xr = x + row * d + d0;
-  const int live = d - d0;                   // columns left of the edge
-  if (vec_x)                                 // d % 4 == 0 (ch is)
-    copy_rows<4>(xs, xr, d, steps, ch / 4,
-                 [live](int u) { return 4 * u < live; });
-  else
-    copy_rows<1>(xs, xr, d, steps, ch, [live](int u) { return u < live; });
-}
-
-// The block's channel count at state size N.
-template <int N>
-__host__ __device__ constexpr int ss_channels() {
-  return SS_THREADS / (N / (N < SS_PER ? N : SS_PER));
-}
-
-// Dynamic shared memory of one launch: the SS_SLOTS staging buffers.
-template <int N>
-__host__ __device__ constexpr size_t ss_smem_bytes() {
-  return SS_SLOTS * sizeof(float) * SS_CHUNK *
-         (1 + 2 * N + ss_channels<N>());
-}
+//
+// Under autograd the forward (`h_chunks` non-null) also writes the state
+// entering each SS_CHUNK-step chunk, [B, ceil(S / SS_CHUNK), D, N] f32,
+// for the backward.
+//
+// The bf16 scan (`ssm_scan_dtype` bfloat16: `selective_scan_bf16_kernel`)
+// is the reference's chunked associative scan in bf16
+// (src/repro/models/ssm.py:100-111), whose rounding depends on its tree:
+// a sequential bf16 scan, or an f32 one, lies further from it than its
+// checks allow over a long chunk (with exp(dt A) rounded to 1 a bf16 sum
+// of 256 steps drifts). So it runs that tree: a lane a (channel, state),
+// the chunk's odd/even up-sweep of (a, b) pairs into bf16 levels kept in
+// the lane's local memory (at most 256 pairs), then the down-sweep, each
+// combine (al ar, ar bl + br) rounded to bf16 op by op as the reference's
+// bf16 arithmetic rounds; the level-0 pairs (1, h) and (exp(dt A), dt B
+// x) rounded to bf16 are recomputed from the staged chunk where needed.
+// y sums bf16 states times C in f32; inputs and outputs stay f32.
+#include "selective_scan.cuh"
 
 template <int N>
 __global__ void __launch_bounds__(SS_THREADS) selective_scan_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ bmat, const float* __restrict__ cmat,
     const float* __restrict__ a, const float* __restrict__ h0,
-    float* __restrict__ y, float* __restrict__ h_last, int s, int d) {
+    float* __restrict__ y, float* __restrict__ h_last,
+    float* __restrict__ h_chunks, int s, int d) {
   constexpr int PER = N < SS_PER ? N : SS_PER;  // states a lane
   constexpr int G = N / PER;                    // lanes a channel
   constexpr int CH = ss_channels<N>();          // channels a block
@@ -214,6 +101,12 @@ __global__ void __launch_bounds__(SS_THREADS) selective_scan_kernel(
       stage_chunk<N>(smem + ((kc + 2) % SS_SLOTS) * STAGE, CH, x, dt, bmat,
                      cmat, b, s, d, d0, t0 + 2 * SS_CHUNK, vec_bc, vec_x);
       cp_commit();
+    }
+    if (h_chunks != nullptr && live) {     // the state entering chunk kc
+      float* hc = h_chunks + (((size_t)b * chunks + kc) * d + chan) * N +
+                  g * PER;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) hc[j] = h[j];
     }
     const float* dts = smem + (kc % SS_SLOTS) * STAGE;
     const float* bs = dts + SS_CHUNK + g * PER;
@@ -260,43 +153,203 @@ __global__ void __launch_bounds__(SS_THREADS) selective_scan_kernel(
 template <int N>
 static int ss_launch(int b, cudaStream_t st, const void* x, const void* dt,
                      const void* bmat, const void* cmat, const void* a,
-                     const void* h0, void* y, void* h_last, int s, int d) {
+                     const void* h0, void* y, void* h_last, void* h_chunks,
+                     int s, int d) {
   constexpr size_t smem = ss_smem_bytes<N>();
-  // once per instantiation: allow the ring's dynamic shared memory (over
-  // the default 48 KB at N 4, 8 and 64), and let the SM give shared memory
-  // its largest share, so that a balanced grid's blocks are all resident
-  static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(
-        selective_scan_kernel<N>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        selective_scan_kernel<N>,
-        cudaFuncAttributePreferredSharedMemoryCarveout,
-        (int)cudaSharedmemCarveoutMaxShared);
-  }();
+  static const cudaError_t attr = ss_attrs(selective_scan_kernel<N>, smem);
   if (attr != cudaSuccess) return (int)attr;
   constexpr int ch = ss_channels<N>();
   dim3 grid((d + ch - 1) / ch, b);
   selective_scan_kernel<N><<<grid, SS_THREADS, smem, st>>>(
       (const float*)x, (const float*)dt, (const float*)bmat,
       (const float*)cmat, (const float*)a, (const float*)h0, (float*)y,
-      (float*)h_last, s, d);
+      (float*)h_last, (float*)h_chunks, s, d);
   return (int)cudaGetLastError();
 }
 
-// h0 may be null (a zero state). Returns the launch's cudaGetLastError(),
-// or cudaErrorInvalidValue for a state size the kernel is not built for.
+// ---------------------------------------------------------------------------
+// the bf16 scan: the reference's associative scan, chunk by chunk
+// ---------------------------------------------------------------------------
+
+#define SS_BF_MAX_CHUNK 256      // steps of a chunk, at most
+#define SS_BF_MAX_LEVELS 10      // levels of its tree, 257 pairs at most
+
+__device__ __forceinline__ unsigned short bf_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float bf_val(unsigned short u) {
+  return __bfloat162float(__ushort_as_bfloat16(u));
+}
+
+template <int N>
+__host__ __device__ constexpr size_t ss_bf_smem_bytes() {
+  return sizeof(float) * SS_BF_MAX_CHUNK *
+         (1 + 2 * N + SS_THREADS / N);
+}
+
+// One lane a (channel, state); the channel's N lanes are consecutive and
+// sum y_t by shuffles. Chunks of L = min(scan chunk, S) steps, the last
+// padded with (1, 0) pairs as the reference pads dt with 0. Level 0 of a
+// chunk is (1, h) then the L steps' (bf16 exp(dt A), bf16 ((dt B) x));
+// level k + 1 holds combine(level k [2i], level k [2i + 1]); the down-
+// sweep gives position 2i + 1 of level k the result i of level k + 1 and
+// position 2i + 2 combine(result i, level k [2i + 2]), in place (only the
+// b half of a result is needed: a result is only ever a left operand).
+template <int N>
+__global__ void __launch_bounds__(SS_THREADS) selective_scan_bf16_kernel(
+    const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ bmat, const float* __restrict__ cmat,
+    const float* __restrict__ a, const float* __restrict__ h0,
+    float* __restrict__ y, float* __restrict__ h_last, int s, int d,
+    int L) {
+  constexpr int CH = SS_THREADS / N;          // channels a block
+  extern __shared__ __align__(16) float smem[];
+  float* dts = smem;                          // [L]
+  float* bs = dts + SS_BF_MAX_CHUNK;          // [L][N]
+  float* cs = bs + SS_BF_MAX_CHUNK * N;       // [L][N]
+  float* xs = cs + SS_BF_MAX_CHUNK * N;       // [L][CH]
+  const int b = blockIdx.y, d0 = blockIdx.x * CH;
+  const int c = threadIdx.x / N, nn = threadIdx.x % N;
+  const int chan = d0 + c;
+  const bool live = chan < d;
+  const float av = live ? a[(size_t)chan * N + nn] : 0.f;
+  float h = live && h0 != nullptr ? bf(h0[((size_t)b * d + chan) * N + nn])
+                                  : 0.f;
+  unsigned short la[SS_BF_MAX_CHUNK], lb[SS_BF_MAX_CHUNK];
+  int off[SS_BF_MAX_LEVELS], cnt[SS_BF_MAX_LEVELS];
+  int levels = 0;                             // levels above level 0
+  for (int n0 = L + 1, o = 0; n0 >= 2; n0 /= 2, ++levels) {
+    off[levels] = o;
+    cnt[levels] = n0 / 2;
+    o += n0 / 2;
+  }
+  for (int t0 = 0; t0 < s; t0 += L) {
+    __syncthreads();          // everyone is done with the last chunk
+    for (int e = threadIdx.x; e < L; e += SS_THREADS)
+      dts[e] = t0 + e < s ? dt[(size_t)b * s + t0 + e] : 0.f;
+    for (int e = threadIdx.x; e < L * N; e += SS_THREADS) {
+      const int t = e / N;
+      const size_t g = ((size_t)b * s + t0 + t) * N + e % N;
+      bs[e] = t0 + t < s ? bmat[g] : 0.f;
+      cs[e] = t0 + t < s ? cmat[g] : 0.f;
+    }
+    for (int e = threadIdx.x; e < L * CH; e += SS_THREADS) {
+      const int t = e / CH, col = d0 + e % CH;
+      xs[e] = t0 + t < s && col < d ? x[((size_t)b * s + t0 + t) * d + col]
+                                    : 0.f;
+    }
+    __syncthreads();
+    // level 0, position i: (1, h), then step i - 1's pair
+    auto leaf_a = [&](int i) {
+      return i == 0 ? 1.f : bf(expf(dts[i - 1] * av));
+    };
+    auto leaf_b = [&](int i) {
+      return i == 0 ? h
+                    : bf((dts[i - 1] * bs[(i - 1) * N + nn]) *
+                         xs[(i - 1) * CH + c]);
+    };
+    // up-sweep
+    for (int i = 0; i < cnt[0]; ++i) {
+      const float al = leaf_a(2 * i), bl = leaf_b(2 * i);
+      const float ar = leaf_a(2 * i + 1), br = leaf_b(2 * i + 1);
+      la[i] = bf_bits(al * ar);
+      lb[i] = bf_bits(bf(ar * bl) + br);
+    }
+    for (int k = 1; k < levels; ++k) {
+      const int p = off[k - 1], q = off[k];
+      for (int i = 0; i < cnt[k]; ++i) {
+        const float al = bf_val(la[p + 2 * i]), bl = bf_val(lb[p + 2 * i]);
+        const float ar = bf_val(la[p + 2 * i + 1]);
+        const float br = bf_val(lb[p + 2 * i + 1]);
+        la[q + i] = bf_bits(al * ar);
+        lb[q + i] = bf_bits(bf(ar * bl) + br);
+      }
+    }
+    // down-sweep over levels >= 1, in place (the top level is its own
+    // result); level k's result at 2i + 2 reads level k's pair there
+    for (int k = levels - 2; k >= 0; --k) {
+      const int p = off[k], q = off[k + 1];
+      for (int i = 0; 2 * i + 2 < cnt[k]; ++i) {
+        const float bl = bf_val(lb[q + i]);
+        const float ar = bf_val(la[p + 2 * i + 2]);
+        const float br = bf_val(lb[p + 2 * i + 2]);
+        lb[p + 2 * i + 2] = bf_bits(bf(ar * bl) + br);
+      }
+      for (int i = 0; i < cnt[k + 1]; ++i) lb[p + 2 * i + 1] = lb[q + i];
+    }
+    // level 0's results at positions 1..L: h after each step
+    for (int j = 1; j <= L; ++j) {
+      float hj;
+      if (j & 1) {
+        hj = bf_val(lb[(j - 1) / 2]);
+      } else {
+        const float bl = bf_val(lb[j / 2 - 1]);
+        hj = bf(bf(leaf_a(j) * bl) + leaf_b(j));
+      }
+      float acc = hj * cs[(j - 1) * N + nn];
+#pragma unroll
+      for (int o = N / 2; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      const int t = t0 + j - 1;
+      if (nn == 0 && live && t < s) y[((size_t)b * s + t) * d + chan] = acc;
+      if (j == L) h = hj;           // the state carried to the next chunk
+    }
+  }
+  if (live) h_last[((size_t)b * d + chan) * N + nn] = h;
+}
+
+template <int N>
+static int ss_bf_launch(int b, cudaStream_t st, const void* x, const void* dt,
+                        const void* bmat, const void* cmat, const void* a,
+                        const void* h0, void* y, void* h_last, int s, int d,
+                        int chunk) {
+  constexpr size_t smem = ss_bf_smem_bytes<N>();
+  static const cudaError_t attr = ss_attrs(selective_scan_bf16_kernel<N>,
+                                           smem);
+  if (attr != cudaSuccess) return (int)attr;
+  constexpr int ch = SS_THREADS / N;
+  dim3 grid((d + ch - 1) / ch, b);
+  selective_scan_bf16_kernel<N><<<grid, SS_THREADS, smem, st>>>(
+      (const float*)x, (const float*)dt, (const float*)bmat,
+      (const float*)cmat, (const float*)a, (const float*)h0, (float*)y,
+      (float*)h_last, s, d, s < chunk ? s : chunk);
+  return (int)cudaGetLastError();
+}
+
+// h0 may be null (a zero state); h_chunks null skips the chunk states
+// ([B, ceil(S / SS_CHUNK), D, N] otherwise); bf16_chunk 0 runs the f32
+// scan, > 0 the bf16 scan of the reference's chunk of that many steps (at
+// most SS_BF_MAX_CHUNK, N at most 32, no chunk states). Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for what the
+// kernels are not built for.
 extern "C" int selective_scan_launch(const void* x, const void* dt,
                                      const void* bmat, const void* cmat,
                                      const void* a, const void* h0, void* y,
-                                     void* h_last, int b, int s, int d, int n,
+                                     void* h_last, void* h_chunks, int b,
+                                     int s, int d, int n, int bf16_chunk,
                                      void* stream) {
   if (b == 0 || d == 0) return 0;
+  if (bf16_chunk < 0 || bf16_chunk > SS_BF_MAX_CHUNK ||
+      (bf16_chunk > 0 && (n > 32 || h_chunks != nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (bf16_chunk > 0 && s > 0) {
+    switch (n) {
+      case 4: return ss_bf_launch<4>(b, st, x, dt, bmat, cmat, a, h0, y,
+                                     h_last, s, d, bf16_chunk);
+      case 8: return ss_bf_launch<8>(b, st, x, dt, bmat, cmat, a, h0, y,
+                                     h_last, s, d, bf16_chunk);
+      case 16: return ss_bf_launch<16>(b, st, x, dt, bmat, cmat, a, h0, y,
+                                       h_last, s, d, bf16_chunk);
+      case 32: return ss_bf_launch<32>(b, st, x, dt, bmat, cmat, a, h0, y,
+                                       h_last, s, d, bf16_chunk);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
 #define SS_CASE(NN)                                                         \
   case NN:                                                                  \
-    return ss_launch<NN>(b, st, x, dt, bmat, cmat, a, h0, y, h_last, s, d);
+    return ss_launch<NN>(b, st, x, dt, bmat, cmat, a, h0, y, h_last,       \
+                         h_chunks, s, d);
   switch (n) {
     SS_CASE(4)
     SS_CASE(8)

@@ -1,6 +1,6 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` (plus the shared `csrc/probe.cuh`) compiles with
+Each `csrc/<name>.cu` (plus the shared headers `csrc/*.cuh`) compiles with
 `nvcc -gencode arch=compute_90a,code=sm_90a` into its own shared library
 under `build/torch_ext/` at the repo root, exporting `extern "C"` launchers
 that take device pointers, sizes and the current stream and return the
@@ -37,7 +37,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("skiplist_search", "hash_probe", "tier_find", "tier_apply",
            "bskiplist_walk", "pq_pop", "splitorder_probe",
-           "paged_attention", "flash_attention", "selective_scan")
+           "paged_attention", "flash_attention", "selective_scan",
+           "selective_scan_bwd")
 WARM_LAYOUTS = ("level", "block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
@@ -72,15 +73,21 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _F, _P],
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
-    "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                              _I, _P],
+    "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _I, _P],
+    "selective_scan_bwd_blocks": [_I, _I],
+    "selective_scan_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCHES.update({f"{name}/{lay}": 0 for name in ("tier_find", "tier_apply")
                  for lay in WARM_LAYOUTS})
+# the scan's forward launches that also save its chunk states (autograd)
+LAUNCHES["selective_scan/save"] = 0
 # the same launches by call shape, for the wrappers that give one:
-# {(name or name/layout, shape): count}
+# {(name or name/variant, shape): count}
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -104,7 +111,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "probe.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
@@ -156,12 +163,13 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, fn: str, *args, layout: str | None = None,
+def launch(kernel: str, fn: str, *args, variant: str | None = None,
            shape=None) -> None:
     """Call launcher `fn` of kernel library `kernel` on the current stream
-    and count one launch of `kernel` (and of `kernel/layout` when a warm
-    layout is given, and in `SHAPE_LAUNCHES` under the call's `shape` when
-    one is given); raise on a launch error."""
+    and count one launch of `kernel` (and of `kernel/variant` when a
+    variant is given: a tier kernel's warm layout, the scan's saving
+    forward; and in `SHAPE_LAUNCHES` under the call's `shape` when one is
+    given); raise on a launch error."""
     lib = library(kernel)
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*args, stream)
@@ -169,8 +177,8 @@ def launch(kernel: str, fn: str, *args, layout: str | None = None,
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
     name = kernel
-    if layout is not None:
-        name = f"{kernel}/{layout}"
+    if variant is not None:
+        name = f"{kernel}/{variant}"
         LAUNCHES[name] += 1
     if shape is not None:
         SHAPE_LAUNCHES[(name, shape)] += 1

@@ -6,8 +6,8 @@ launcher call, counted once in `cuda.LAUNCHES["paged_attention"]`), with
 f32 scratch for the splits' partial softmaxes allocated here; on CPU
 tensors it runs the plain version (`ref.paged_attention_ref`) and returns
 q's dtype. The reference pads D to 128 for the TPU's lanes; the kernel
-takes D 64 or 128 as it is, so nothing is padded and `scale` defaults to
-1/sqrt(D)."""
+takes D 16, 32, 64 or 128 as it is (16: every reduced config's heads),
+so nothing is padded and `scale` defaults to 1/sqrt(D)."""
 from __future__ import annotations
 
 import math
@@ -22,7 +22,7 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 # llama4-scout 5, qwen1.5-110b 8, llama3-405b and qwen3-moe 16), each held
 # against the plain version on the card by chip_smoke.py
 GROUPS = (1, 2, 4, 5, 8, 16)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 MAX_PAGE = 32             # tokens a page (one lane of a warp each)
 MAX_SPLIT_PAGES = 16      # table entries a split owns, at most
 _BLOCKS = 2048            # blocks to aim for: many waves on 132 SMs

@@ -1,29 +1,45 @@
-"""Wrapper of the CUDA selective scan (`csrc/selective_scan.cu`).
+"""Wrappers of the CUDA selective scan (`csrc/selective_scan.cu`).
 
-Replaces `repro/kernels/selective_scan/kernel.py:selective_scan_blocks`.
-On CUDA tensors it launches the kernel, a group of lanes a (batch,
-channel) pair, each lane holding up to 8 of the channel's N states in
-registers, counted in `cuda.LAUNCHES["selective_scan"]`; on CPU tensors
-it runs the plain version the model's exec mode `torch` runs
-(`ref.selective_scan_chunked`).
+`selective_scan_fused` replaces
+`repro/kernels/selective_scan/kernel.py:selective_scan_blocks`. On CUDA
+tensors it launches the kernel, a group of lanes a (batch, channel) pair,
+each lane holding up to 8 of the channel's N states in registers, counted
+in `cuda.LAUNCHES["selective_scan"]`; on CPU tensors it runs the plain
+version the model's exec mode `torch` runs (`ref.selective_scan_chunked`).
 Unlike the TPU kernel it takes the initial state `h0` and returns the
 last one, so one wrapper serves prefill (h0 = 0) and every decode step (a
-scan of length 1 from the cached state)."""
+scan of length 1 from the cached state). `scan_dtype` bfloat16 is the
+reference's `ssm_scan_dtype` lever; `save_chunks` also returns the state
+entering every `SS_CHUNK` steps, what the backward starts from (such a
+launch is also counted in `cuda.LAUNCHES["selective_scan/save"]`).
+
+`selective_scan_bwd` is the backward (no TPU counterpart: the reference
+trains through its plain scan), counted in
+`cuda.LAUNCHES["selective_scan_bwd"]`; on CPU tensors it runs
+`ref.selective_scan_bwd_ref`."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cuda
-from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_chunked)
 
 # state sizes the kernel is instantiated for
 STATE_SIZES = (4, 8, 16, 32, 64)
+SCAN_DTYPES = (torch.float32, torch.bfloat16)
+SS_CHUNK = 32             # steps between saved states (csrc's SS_CHUNK)
+# the bf16 scan (the reference's associative scan, its tree per lane in
+# local memory): chunks of at most BF16_MAX_CHUNK steps, N at most
+# BF16_MAX_STATE (a channel's lanes in one warp)
+BF16_MAX_CHUNK = 256
+BF16_MAX_STATE = 32
 
 
-def selective_scan_fused(x, dt, bmat, cmat, a, h0=None):
+def check_inputs(x, dt, bmat, cmat, a, h0=None) -> None:
     """x: [B,S,D]; dt: [B,S]; bmat/cmat: [B,S,N]; a: [D,N]; h0: [B,D,N]
-    or None (zeros); all float32, N one of STATE_SIZES (checked on either
-    device). Returns (y [B,S,D], h_last [B,D,N])."""
+    or None; all float32, N one of STATE_SIZES (checked on either
+    device)."""
     b, s, d = x.shape
     n = bmat.shape[-1]
     if (dt.shape != (b, s) or bmat.shape != (b, s, n)
@@ -37,12 +53,87 @@ def selective_scan_fused(x, dt, bmat, cmat, a, h0=None):
     if n not in STATE_SIZES:
         raise ValueError(f"selective_scan: N={n} must be one of "
                          f"{STATE_SIZES}")
+
+
+def selective_scan_fused(x, dt, bmat, cmat, a, h0=None, *,
+                         scan_dtype=torch.float32, scan_chunk: int = 256,
+                         save_chunks=False):
+    """x: [B,S,D]; dt: [B,S]; bmat/cmat: [B,S,N]; a: [D,N]; h0: [B,D,N]
+    or None (zeros); all float32 (`check_inputs`). `scan_chunk` is the
+    reference's chunk (`cfg.scan_chunk`), where its bf16 scan carries a
+    bf16 state (the f32 scan does not depend on it). Returns (y [B,S,D],
+    h_last [B,D,N]), and with `save_chunks` also the states entering each
+    SS_CHUNK steps, [B, ceil(S / SS_CHUNK), D, N] f32 (None on the CPU,
+    whose backward starts from h0)."""
+    check_inputs(x, dt, bmat, cmat, a, h0)
+    if scan_dtype not in SCAN_DTYPES:
+        raise ValueError(f"selective_scan: scan dtype {scan_dtype} not in "
+                         f"{SCAN_DTYPES}")
+    if scan_chunk < 1:
+        raise ValueError(f"selective_scan: scan chunk {scan_chunk} < 1")
+    if scan_dtype == torch.bfloat16 and (
+            scan_chunk > BF16_MAX_CHUNK or bmat.shape[-1] > BF16_MAX_STATE
+            or save_chunks):
+        raise ValueError(f"selective_scan: the bf16 scan takes chunks of "
+                         f"at most {BF16_MAX_CHUNK} steps and N at most "
+                         f"{BF16_MAX_STATE}, and has no backward")
     if not x.is_cuda:
-        return selective_scan_chunked(x, dt, bmat, cmat, a, h0)
+        y, h = selective_scan_chunked(x, dt, bmat, cmat, a, h0, scan_chunk,
+                                      scan_dtype)
+        return (y, h, None) if save_chunks else (y, h)
+    b, s, d = x.shape
+    n = bmat.shape[-1]
     cuda.check_cuda("selective_scan", x, dt, bmat, cmat, a, h0)
     y = torch.empty_like(x)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
+    chunks = (torch.empty((b, -(-s // SS_CHUNK), d, n), dtype=torch.float32,
+                          device=x.device) if save_chunks else None)
     cuda.launch("selective_scan", "selective_scan_launch", cuda.ptr(x),
                 cuda.ptr(dt), cuda.ptr(bmat), cuda.ptr(cmat), cuda.ptr(a),
-                cuda.ptr(h0), cuda.ptr(y), cuda.ptr(h_last), b, s, d, n)
-    return y, h_last
+                cuda.ptr(h0), cuda.ptr(y), cuda.ptr(h_last),
+                cuda.ptr(chunks), b, s, d, n,
+                scan_chunk if scan_dtype == torch.bfloat16 else 0,
+                variant="save" if save_chunks else None)
+    return (y, h_last, chunks) if save_chunks else (y, h_last)
+
+
+def selective_scan_bwd(x, dt, bmat, cmat, a, h0, h_chunks, dy,
+                       dh_last=None):
+    """The f32 scan's gradient for the cotangents dy [B,S,D] and dh_last
+    [B,D,N] (None: zeros), from the forward's inputs and, on CUDA, its
+    chunk states (`selective_scan_fused(..., save_chunks=True)`). Returns
+    (dx, ddt, dB, dC, dA, dh0) in the shapes of (x, dt, B, C, A, h0)."""
+    check_inputs(x, dt, bmat, cmat, a, h0)
+    if not x.is_cuda:
+        return selective_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_last)
+    b, s, d = x.shape
+    n = bmat.shape[-1]
+    if dy.shape != x.shape or dy.dtype != torch.float32 or (
+            dh_last is not None and (dh_last.shape != (b, d, n)
+                                     or dh_last.dtype != torch.float32)):
+        raise ValueError("selective_scan_bwd: f32 dy [B,S,D], dh_last "
+                         "[B,D,N]")
+    if h_chunks is None or h_chunks.shape != (b, -(-s // SS_CHUNK), d, n):
+        raise ValueError("selective_scan_bwd: the forward's chunk states "
+                         "[B, ceil(S / 32), D, N]")
+    cuda.check_cuda("selective_scan_bwd", x, dt, bmat, cmat, a, h_chunks,
+                    dy, dh_last)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    if b == 0 or d == 0:
+        return (torch.zeros_like(x), torch.zeros((b, s), **f32),
+                torch.zeros((b, s, n), **f32), torch.zeros((b, s, n), **f32),
+                torch.zeros((d, n), **f32), torch.zeros((b, d, n), **f32))
+    nblk = cuda.library("selective_scan_bwd").selective_scan_bwd_blocks(d, n)
+    part = torch.empty((b, nblk, s, 2 * n + 1), **f32)
+    part_da = torch.empty((b, d, n), **f32)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, s), **f32)
+    db = torch.empty((b, s, n), **f32)
+    dc = torch.empty((b, s, n), **f32)
+    da = torch.empty((d, n), **f32)
+    dh0 = torch.empty((b, d, n), **f32)
+    cuda.launch("selective_scan_bwd", "selective_scan_bwd_launch",
+                *(cuda.ptr(t) for t in (x, dt, bmat, cmat, a, h_chunks, dy,
+                                        dh_last, dx, part, part_da, db, dc,
+                                        ddt, da, dh0)), b, s, d, n)
+    return dx, ddt, db, dc, da, dh0

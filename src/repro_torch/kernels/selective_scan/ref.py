@@ -6,8 +6,10 @@ scan in `repro.models.ssm.mamba_forward`):
     y_t = sum_n h_t[d, n] * C_t[n]
 
 `selective_scan_ref` steps the recurrence one position at a time, as the
-reference's oracle does. `selective_scan_chunked` is what the reference
-model computes and what exec mode `torch` runs: the sequence in chunks of
+reference's oracle does; `selective_scan_bwd_ref` steps its gradient
+back the same way, the plain version of the backward kernel.
+`selective_scan_chunked` is what the reference model computes and what
+exec mode `torch` runs: the sequence in chunks of
 `chunk` steps, each chunk an associative scan of (exp(dt A), dt B x)
 pairs seeded with the carried state, in `associative_scan`'s order of
 operations (a copy of `jax.lax.associative_scan`'s odd/even recursion),
@@ -37,6 +39,53 @@ def selective_scan_ref(x, dt, bmat, cmat, a, h0=None):
     y = (torch.stack(ys, 1) if ys
          else torch.zeros((b, 0, d), dtype=torch.float32, device=x.device))
     return y, h
+
+
+def selective_scan_bwd_ref(x, dt, bmat, cmat, a, h0, dy, dh_last=None):
+    """The gradient of `selective_scan_ref` (y, h_last) for the cotangents
+    dy [B,S,D] and dh_last [B,D,N] (None: zeros), one step at a time: with
+    g_t = dL/dh_t = C_t dy_t + exp(dt_{t+1} A) g_{t+1} (plus dh_last at
+    the last step),
+
+        dx_t[d] = dt_t sum_n g_t B_t      dB_t[n] = dt_t sum_d g_t x_t
+        dC_t[n] = sum_d h_t dy_t
+        ddt_t   = sum_{d,n} g_t (A exp(dt_t A) h_{t-1} + B_t x_t)
+        dA      = sum_{b,t} g_t dt_t exp(dt_t A) h_{t-1}
+        dh0     = exp(dt_0 A) g_0
+
+    Returns (dx [B,S,D], ddt [B,S], dB [B,S,N], dC [B,S,N], dA [D,N],
+    dh0 [B,D,N]), all f32."""
+    b, s, d = x.shape
+    n = bmat.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    x, dt, bmat, cmat, a, dy = (t.float() for t in (x, dt, bmat, cmat, a,
+                                                    dy))
+    h = torch.zeros((b, d, n), **f32) if h0 is None else h0.float()
+    hs = [h]                                          # h_{-1}, h_0, ...
+    for t in range(s):
+        da = torch.exp(dt[:, t, None, None] * a[None])
+        h = da * h + (dt[:, t, None] * x[:, t])[..., None] \
+            * bmat[:, t, None, :]
+        hs.append(h)
+    gc = (torch.zeros((b, d, n), **f32) if dh_last is None
+          else dh_last.float())
+    dx = torch.empty((b, s, d), **f32)
+    ddt = torch.empty((b, s), **f32)
+    db = torch.empty((b, s, n), **f32)
+    dc = torch.empty((b, s, n), **f32)
+    dA = torch.zeros((d, n), **f32)
+    for t in reversed(range(s)):
+        at = torch.exp(dt[:, t, None, None] * a[None])             # [B,D,N]
+        g = cmat[:, t, None, :] * dy[:, t, :, None] + gc
+        dx[:, t] = dt[:, t, None] * (g * bmat[:, t, None, :]).sum(-1)
+        db[:, t] = dt[:, t, None] * (g * x[:, t, :, None]).sum(1)
+        dc[:, t] = (hs[t + 1] * dy[:, t, :, None]).sum(1)
+        ah = at * hs[t]
+        ddt[:, t] = (g * (a[None] * ah + bmat[:, t, None, :]
+                          * x[:, t, :, None])).sum((1, 2))
+        dA += (g * dt[:, t, None, None] * ah).sum(0)
+        gc = at * g
+    return dx, ddt, db, dc, dA, gc
 
 
 def _combine(left, right):

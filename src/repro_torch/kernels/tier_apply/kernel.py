@@ -89,11 +89,11 @@ def tier_apply_tiles(sk, ss, sm, krs, srs, hot_keys, meta,
                 cuda.ptr(state), state.numel(),
                 member_team(k, layout, cuda.sm_count(dev),
                             functools.partial(member_slots, dev.index or 0)),
-                layout=layout, shape=k)
+                variant=layout, shape=k)
     cuda.launch("tier_apply", "tier_apply_scan_launch", k, b, code,
                 cuda.ptr(krs), cuda.ptr(srs), cuda.ptr(flags),
                 cuda.ptr(emask), cuda.ptr(vorder), cuda.ptr(max_evict),
                 cuda.ptr(state), cuda.ptr(placed), cuda.ptr(exists),
                 cuda.ptr(dup), cuda.ptr(need_ev), cuda.ptr(col),
-                cuda.ptr(vcol), layout=layout, shape=k)
+                cuda.ptr(vcol), variant=layout, shape=k)
     return (in_warm, in_spill, placed, exists, dup, need_ev, col, vcol, ecol)

@@ -70,5 +70,5 @@ def tier_find_tiles(q: torch.Tensor, slots: torch.Tensor,
                 cuda.ptr(sp.run_off), runs,
                 0 if spill is None else spill.keys.shape[0],
                 *[cuda.ptr(o) for o in outs[:4]],
-                *[cuda.ptr(o) for o in sp_out], team, layout=layout, shape=t)
+                *[cuda.ptr(o) for o in sp_out], team, variant=layout, shape=t)
     return tuple(outs)

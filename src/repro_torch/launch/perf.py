@@ -19,9 +19,11 @@ Variants (composable, the reference's names):
   podcomp    pod_compress=True
 
 A variant the card's path refuses prints `FAIL <variant>: <refusal>` and
-the sweep goes on: kvfp8 (the port's dtypes are f32 and bf16) and, on a
-model with a mamba block, ssmbf16 (the selective_scan kernel is f32;
-the dry run itself runs the plain scan, which would take it).
+the sweep goes on: on a train cell, flash (the flash_attention kernel
+has no backward) and, on a model with a mamba block, ssmbf16 (the
+selective_scan kernel's bf16 scan has none either; the dry run itself
+runs the plain versions, which would take both). kvfp8 caches in
+float8_e4m3fn, which the dry run counts at one byte an element.
 """
 from __future__ import annotations
 
@@ -30,7 +32,9 @@ import json
 import os
 import re
 
+from repro_torch import exec as exec_
 from repro_torch.configs import get_config
+from repro_torch.configs.base import SHAPES
 from repro_torch.launch.dryrun import lower_cell
 from repro_torch.launch.roofline import analyze_cell
 from repro_torch.models import ssm
@@ -71,19 +75,22 @@ def parse_variant(v: str):
     raise SystemExit(f"unknown variant {v}")
 
 
-def card_refusal(arch: str, overrides: dict) -> None:
+def card_refusal(arch: str, overrides: dict, shape: str) -> None:
     """Raise the refusal the card's path (exec mode gpu) gives the
-    variant's config, if any."""
+    variant's config on the cell `shape`, if any."""
     cfg = get_config(arch).replace(**overrides)
     if cfg.family == "kvstore":
         return
     dtype_of(cfg.kv_cache_dtype)
+    training = SHAPES[shape].kind == "train"
+    if training and cfg.attn_impl == "xla_flash":
+        raise exec_.forward_only("flash_attention")
     if "hymba" in block_kinds(cfg):
-        ssm.check_scan_kernel(cfg)
+        ssm.check_scan_kernel(cfg, training)
 
 
 def run_variant(arch, shape, multi_pod, overrides, microbatches):
-    card_refusal(arch, overrides or {})
+    card_refusal(arch, overrides or {}, shape)
     full = lower_cell(arch, shape, multi_pod, microbatches=microbatches,
                       overrides=overrides or None)
     return analyze_cell(arch, shape, multi_pod, full_report=full,

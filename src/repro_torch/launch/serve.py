@@ -1,7 +1,6 @@
 """Serving launcher: continuous batching on an architecture's reduced
-config, on the card unless `--device cpu` is given. The paged_attention
-kernel is built for heads of 64 and 128, so the reduced config's heads
-are widened to 64 (`PAGED_HEAD_DIM`) on either device. `--dryrun` runs
+config as it is, as the reference's launcher serves it, on the card
+unless `--device cpu` is given. `--dryrun` runs
 the FULL config's prefill_32k and decode_32k cells shapes-only on the
 production mesh (`launch.dryrun`).
 
@@ -15,7 +14,20 @@ import argparse
 
 from repro_torch.launch.train import MULTI_POD_ALONE, dryrun
 
-PAGED_HEAD_DIM = 64
+
+def serve_config(arch: str):
+    """The config the launcher serves: `get_reduced(arch)` unchanged; the
+    paged engine refuses recurrent archs, MLA and codebook models."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.serving.paged_decode import CODEBOOK_REFUSAL
+    cfg = get_reduced(arch)
+    if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
+        raise SystemExit(f"{arch}: paged engine serves GQA transformer "
+                         f"families; recurrent archs decode via model state "
+                         f"(see launch/dryrun decode cells)")
+    if cfg.n_codebooks:
+        raise SystemExit(f"{arch}: {CODEBOOK_REFUSAL}")
+    return cfg
 
 
 def main(argv=None):
@@ -37,19 +49,11 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_reduced
     from repro_torch.core.layout import resolve_device
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Engine, Request
-    from repro_torch.serving.paged_decode import CODEBOOK_REFUSAL
 
-    cfg = get_reduced(args.arch).replace(head_dim=PAGED_HEAD_DIM)
-    if cfg.attn_type != "gqa" or cfg.block_pattern != "transformer":
-        raise SystemExit(f"{args.arch}: paged engine serves GQA transformer "
-                         f"families; recurrent archs decode via model state "
-                         f"(see launch/dryrun decode cells)")
-    if cfg.n_codebooks:
-        raise SystemExit(f"{args.arch}: {CODEBOOK_REFUSAL}")
+    cfg = serve_config(args.arch)
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
     # the engine's kernels run on the card; the CPU takes the plain path

@@ -1,9 +1,12 @@
 """Training launcher: the real loop on an architecture's reduced config,
-on the card unless `--device cpu` is given; or `--dryrun` to run the FULL
+on the card (exec mode gpu: hymba's scan through the selective_scan
+kernels and their backward) unless `--device cpu` is given (exec mode
+torch, the plain versions); or `--dryrun` to run the FULL
 config's train_4k cell shapes-only on the production mesh
 (`launch.dryrun`, in-process: nothing is allocated).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 100
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-405b --dryrun [--multi-pod]
 """
@@ -52,14 +55,18 @@ def main(argv=None):
 
     from repro_torch.configs import get_reduced
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.layout import resolve_device
+    from repro_torch.exec import exec_mode
     from repro_torch.train.loop import train
 
     cfg = get_reduced(args.arch)
     shape = ShapeConfig("cli", seq_len=args.seq, global_batch=args.batch,
                         kind="train")
-    _, _, out = train(cfg, shape, steps=args.steps, ckpt_dir=args.ckpt,
-                      ckpt_every=50 if args.ckpt else 0,
-                      microbatches=args.microbatches, device=args.device)
+    dev = resolve_device(args.device)
+    with exec_mode("gpu" if dev.type == "cuda" else "torch"):
+        _, _, out = train(cfg, shape, steps=args.steps, ckpt_dir=args.ckpt,
+                          ckpt_every=50 if args.ckpt else 0,
+                          microbatches=args.microbatches, device=dev)
     h = out["history"]
     print(f"final loss {h[-1]['loss']:.4f} over {len(h)} steps")
 

@@ -4,7 +4,8 @@ KV and a decoupled rope key shared by the heads).
 
   gqa_forward  full-sequence causal
   gqa_prefill  forward + the KV cache (padded to cache_len, in
-               `kv_cache_dtype`), optionally after a cached prefix `past`
+               `kv_cache_dtype`, float8_e4m3fn cast as the reference casts:
+               `common.to_cache`), optionally after a cached prefix `past`
   gqa_decode   one token against a contiguous KV cache
   mla_forward, mla_prefill, mla_decode   the same for MLA, whose cache is
                {"ckv": [B, S, kv_lora_rank], "kpe": [B, S, qk_rope_dim]}
@@ -21,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import (NEG_INF, apply_rope, attend_causal,
                                        bf16_einsum, causal_mask, dense_init,
-                                       dtype_of, rms_norm)
+                                       dtype_of, rms_norm, to_cache)
 from repro_torch.models.params import Weights
 
 
@@ -100,8 +101,8 @@ def gqa_prefill(p: GQA, cfg, x, positions, cache_len: int, window: int = 0,
     y = o.reshape(b, s, -1) @ p.w("wo", cfg.compute_dtype)
     pad = cache_len - s - off
     kt = dtype_of(cfg.kv_cache_dtype)
-    kc = F.pad(k, (0, 0, 0, 0, 0, pad)).to(kt)
-    vc = F.pad(v, (0, 0, 0, 0, 0, pad)).to(kt)
+    kc = to_cache(F.pad(k, (0, 0, 0, 0, 0, pad)), kt)
+    vc = to_cache(F.pad(v, (0, 0, 0, 0, 0, pad)), kt)
     return y, {"k": kc, "v": vc}
 
 
@@ -120,8 +121,8 @@ def gqa_decode(p: GQA, cfg, x, pos, cache, window: int = 0):
     kt = cache["k"].dtype
     bf = torch.bfloat16
     oh = F.one_hot(pos.long(), s_max).to(bf)[:, :, None, None]
-    kc = (cache["k"].to(bf) + oh * k.to(bf)).to(kt)
-    vc = (cache["v"].to(bf) + oh * v.to(bf)).to(kt)
+    kc = to_cache(cache["k"].to(bf) + oh * k.to(bf), kt)
+    vc = to_cache(cache["v"].to(bf) + oh * v.to(bf), kt)
 
     ki = torch.arange(s_max, device=x.device)[None, :]
     ok = (ki <= pos[:, None]) & ((window <= 0) | (ki > pos[:, None] - window))
@@ -247,8 +248,8 @@ def mla_prefill(p: MLA, cfg, x, positions, cache_len: int, window: int = 0):
     y = _mla_attend_causal(p, cfg, q_nope, q_pe, ckv, kpe, window)
     kt = dtype_of(cfg.kv_cache_dtype)
     pad = cache_len - s
-    return y, {"ckv": F.pad(ckv, (0, 0, 0, pad)).to(kt),
-               "kpe": F.pad(kpe, (0, 0, 0, pad)).to(kt)}
+    return y, {"ckv": to_cache(F.pad(ckv, (0, 0, 0, pad)), kt),
+               "kpe": to_cache(F.pad(kpe, (0, 0, 0, pad)), kt)}
 
 
 def mla_decode(p: MLA, cfg, x, pos, cache, window: int = 0):
@@ -261,8 +262,8 @@ def mla_decode(p: MLA, cfg, x, pos, cache, window: int = 0):
     kt = cache["ckv"].dtype
     bf = torch.bfloat16
     oh = F.one_hot(pos.long(), s_max).to(bf)[:, :, None]
-    ckv = (cache["ckv"].to(bf) + oh * ckv_new.to(bf)).to(kt)
-    kpe = (cache["kpe"].to(bf) + oh * kpe_new.to(bf)).to(kt)
+    ckv = to_cache(cache["ckv"].to(bf) + oh * ckv_new.to(bf), kt)
+    kpe = to_cache(cache["kpe"].to(bf) + oh * kpe_new.to(bf), kt)
     ki = torch.arange(s_max, device=x.device)[None, :]
     ok = (ki <= pos[:, None]) & ((window <= 0) | (ki > pos[:, None] - window))
     zero = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -20,8 +20,12 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_fused
 from repro_torch.kernels.flash_attention.ref import attend_flash_ref
 from repro_torch import exec as exec_
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float8_e4m3fn": torch.float8_e4m3fn}
 NEG_INF = float("-inf")
+# ml_dtypes (the reference's float8_e4m3fn) rounds |x| > 464 and +-inf to
+# a NaN of x's sign (464 itself to 448); torch saturates them to +-448
+FP8_NAN_ABOVE = 464.0
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -30,6 +34,17 @@ def dtype_of(name: str) -> torch.dtype:
     except KeyError:
         raise KeyError(f"dtype {name!r} not supported; one of "
                        f"{sorted(DTYPES)}") from None
+
+
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`x` in a KV cache's dtype (`kv_cache_dtype`), cast as the reference
+    casts: to float8_e4m3fn with NaN where |x| > FP8_NAN_ABOVE or x is
+    infinite, where torch alone would saturate."""
+    if dtype != torch.float8_e4m3fn:
+        return x.to(dtype)
+    # in x's own dtype (bf16 or f32: 464 and the compare are exact in both)
+    nan = torch.copysign(torch.full_like(x, torch.nan), x)     # signed
+    return torch.where(x.abs() > FP8_NAN_ABOVE, nan, x).to(dtype)
 
 
 def cast(x: torch.Tensor, dtype_str: str) -> torch.Tensor:

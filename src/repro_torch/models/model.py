@@ -29,7 +29,9 @@ n_cb·Vp columns.
 
 With `cfg.remat` and grad enabled, `forward` keeps only each layer's
 input and recomputes the layer in the backward pass (the reference's
-`jax.checkpoint` of a layer group).
+`jax.checkpoint` of a layer group), in the exec mode of the forward: on
+CUDA the recompute runs in the autograd engine's thread, which the
+caller's mode (a `ContextVar`) does not reach.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import exec as exec_
 from repro_torch.models.blocks import (block_decode, block_forward,
                                        block_init_cache, block_kinds,
                                        block_prefill, init_block,
@@ -161,15 +164,22 @@ def forward(p: LM, cfg, tokens, positions=None, prefix_embeds=None):
         positions = _positions(b, s, 0, x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
+    mode = exec_.get_mode()
     for _, kind, win, bp in _layers(p, cfg):
         if remat:
-            x, a = checkpoint(block_forward, bp, cfg, kind, x, positions,
-                              win, use_reentrant=False)
+            x, a = checkpoint(_block_in_mode, mode, bp, cfg, kind, x,
+                              positions, win, use_reentrant=False)
         else:
             x, a = block_forward(bp, cfg, kind, x, positions, win)
         aux = aux + a
     x = rms_norm(x, p.final_norm, cfg.norm_eps)
     return _head(p, cfg, x), aux
+
+
+def _block_in_mode(mode: str, *args):
+    """`block_forward(*args)` in exec mode `mode` (remat's recompute)."""
+    with exec_.exec_mode(mode):
+        return block_forward(*args)
 
 
 def prefill(p: LM, cfg, tokens, cache_len: int, positions=None,

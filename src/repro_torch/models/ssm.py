@@ -17,11 +17,15 @@ loop over the sequence. No kernel runs in either: the reference's are
 
 The exec mode (`repro_torch.exec`) picks the scan: `gpu` (the default)
 launches the `selective_scan` CUDA kernel on (x_conv, dt, B, C, A, h0),
-which is forward-only: it refuses inputs that autograd tracks, and CPU
-tensors; `torch` runs the reference's chunked associative scan
+in f32 or as the reference's bf16 scan (`ssm_scan_dtype`), and refuses
+CPU tensors; under autograd it goes through the kernel's
+`torch.autograd.Function`, whose backward is the `selective_scan_bwd`
+kernel (f32 only: the bf16 scan refuses autograd). `torch` runs the
+reference's chunked associative scan
 (`kernels.selective_scan.ref.selective_scan_chunked`). The D skip, the
-SiLU gate and the output projection stay plain ops around the scan in
-both, as they sit outside the reference's Pallas kernel.
+SiLU gate, the output projection and A = -exp(a_log) stay plain ops
+around the scan in both, as they sit outside the reference's Pallas
+kernel, so autograd takes dA on to a_log.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ops import (BF16_BACKWARD_REFUSAL,
+                                                    selective_scan)
 from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.params import Weights
@@ -84,12 +89,16 @@ def _mamba_core(p: Mamba, cfg, xz, conv_state):
     return F.silu(xc), z, xp[:, n - (k - 1):]
 
 
-def check_scan_kernel(cfg) -> None:
-    """The selective_scan kernel's refusal of a scan dtype it lacks."""
-    if cfg.ssm_scan_dtype != "float32":
+def check_scan_kernel(cfg, training: bool = False) -> None:
+    """The selective_scan kernels' refusals: a scan dtype they lack, and
+    the bf16 scan under autograd (it has no backward)."""
+    if cfg.ssm_scan_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"the selective_scan kernel runs in float32; ssm_scan_dtype "
-            f"{cfg.ssm_scan_dtype!r} runs in exec mode 'torch' only")
+            f"the selective_scan kernel runs in float32 or bfloat16; "
+            f"ssm_scan_dtype {cfg.ssm_scan_dtype!r} runs in exec mode "
+            f"'torch' only")
+    if training and cfg.ssm_scan_dtype != "float32":
+        raise NotImplementedError(BF16_BACKWARD_REFUSAL)
 
 
 def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
@@ -103,8 +112,6 @@ def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
     gpu = exec_.resolve(None) == "gpu"
     if gpu:
         check_scan_kernel(cfg)
-        exec_.no_autograd("selective_scan", x, state["ssm"],
-                          *p.parameters())
         exec_.gpu_tensors("mamba_forward", x)
     xz = x @ p.w("in_proj", ct)
     xc, z, new_conv = _mamba_core(p, cfg, xz, state["conv"])
@@ -116,7 +123,8 @@ def mamba_forward(p: Mamba, cfg, x, state=None, chunk: int | None = None):
     a = -torch.exp(p.a_log.float())                             # [di, n]
     if gpu:
         y, h_last = selective_scan(xc, dt[..., 0], bmat, cmat, a,
-                                   state["ssm"])
+                                   state["ssm"],
+                                   dtype_of(cfg.ssm_scan_dtype), chunk)
     else:
         y, h_last = selective_scan_chunked(
             xc, dt[..., 0], bmat, cmat, a, state["ssm"], chunk,

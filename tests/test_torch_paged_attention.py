@@ -4,7 +4,7 @@ The port's plain version (`kernels.paged_attention.ref`) and its kernel
 wrapper on CPU tensors (which runs the plain version) against the
 reference's jnp oracle `paged_attention_ref` and its Pallas kernel
 `paged_attention` in interpret mode, on the three shapes x {f32, bf16} of
-tests/test_kernels.py, each with a -1 page in the middle of a table and a
+tests/test_kernels.py and at the reduced configs' heads (D 16, G 2), each with a -1 page in the middle of a table and a
 length that ends mid-page. Tolerances are tests/test_kernels.py's: 5e-6
 for f32 (the same f32 products summed in another order), 3e-2 for bf16
 (outputs in bf16, one step is 2^-8 of the value). The CUDA kernel itself
@@ -33,7 +33,8 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 SHAPES = [dict(B=2, H=4, HKV=2, D=64, PAGE=16, NP=16, P=4),
           dict(B=4, H=8, HKV=8, D=64, PAGE=32, NP=32, P=4),
-          dict(B=1, H=8, HKV=1, D=128, PAGE=16, NP=8, P=3)]
+          dict(B=1, H=8, HKV=1, D=128, PAGE=16, NP=8, P=3),
+          dict(B=3, H=4, HKV=2, D=16, PAGE=8, NP=16, P=4)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 5e-6),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -152,9 +153,13 @@ def test_kernel_groups_and_launch_checks():
         with pytest.raises(ValueError, match=f"G={g} query heads"):
             check_launch(torch.zeros((b, hkv, g, d)), kp, vp, tables,
                          lengths)
-    with pytest.raises(ValueError, match="D=32"):
-        check_launch(torch.zeros((b, hkv, 2, 32)), kp[..., :32],
-                     vp[..., :32], tables, lengths)
+    for dd in (16, 32):                 # the reduced configs' heads, too
+        check_launch(torch.zeros((b, hkv, 2, dd)), kp[..., :dd],
+                     vp[..., :dd], tables, lengths)
+    for dd in (8, 48):
+        with pytest.raises(ValueError, match=f"D={dd}"):
+            check_launch(torch.zeros((b, hkv, 2, dd)), kp[..., :dd],
+                         vp[..., :dd], tables, lengths)
     big = torch.zeros((2, 64, hkv, d))
     with pytest.raises(ValueError, match="page 1..32"):
         check_launch(q.reshape(b, hkv, h // hkv, d), big, big, tables,

@@ -15,6 +15,14 @@ with a sequence that is not a multiple of `scan_chunk`: y and both
 states. The CUDA kernel runs only on the card (chip_smoke.py holds it
 against the chunked scan at the served shapes); here exec mode `gpu`
 must refuse CPU tensors.
+
+The backward: `selective_scan_bwd_ref` (the plain version of the
+backward kernel) against the reference oracle's `jax.vjp` and against
+torch autograd through both plain scans, from a nonzero h0 and dh_last,
+within TOL of each gradient's largest |value| (the same f32 arithmetic,
+summed in other orders); and the `SelectiveScan` autograd Function's
+wiring on the CPU (its plain forward and backward) against autograd of
+`selective_scan_ref`.
 """
 import functools
 
@@ -32,8 +40,10 @@ from repro.kernels.selective_scan.ref import selective_scan_ref as j_ref
 from repro.models import ssm as jssm
 from repro_torch.configs import get_reduced
 from repro_torch.kernels import cuda
-from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.kernels.selective_scan.ref import (selective_scan_chunked,
+from repro_torch.kernels.selective_scan.ops import (BF16_BACKWARD_REFUSAL,
+                                                    selective_scan)
+from repro_torch.kernels.selective_scan.ref import (selective_scan_bwd_ref,
+                                                    selective_scan_chunked,
                                                     selective_scan_ref)
 from repro_torch.models import ssm
 from repro_torch.store import exec as exec_
@@ -144,15 +154,143 @@ def test_mamba_forward_and_decode_match_reference(scan_dtype, tol):
 
 
 def test_gpu_mode_refuses_cpu_tensors_and_bf16_scans():
+    """Exec mode gpu refuses CPU tensors, the bf16 scan's as the f32
+    scan's (both have a kernel); a scan dtype no kernel runs, and the
+    bf16 scan under autograd, are refused by `check_scan_kernel`."""
     _, tcfg, _, tp = _mamba_pair("float32")
     x = torch.zeros((1, 4, tcfg.d_model))
     with pytest.raises(RuntimeError, match="CUDA tensors"):
         ssm.mamba_forward(tp, tcfg, x)
-    with pytest.raises(NotImplementedError, match="float32"):
+    with pytest.raises(RuntimeError, match="CUDA tensors"):
         ssm.mamba_forward(tp, tcfg.replace(ssm_scan_dtype="bfloat16"), x)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        ssm.check_scan_kernel(tcfg.replace(ssm_scan_dtype="float16"))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ssm.check_scan_kernel(tcfg.replace(ssm_scan_dtype="bfloat16"),
+                              training=True)
 
 
 def test_launcher_is_registered():
     assert "selective_scan" in cuda.KERNELS
     assert "selective_scan" in cuda.LAUNCHES
-    assert len(cuda._SIGNATURES["selective_scan_launch"]) == 13
+    assert "selective_scan_bwd" in cuda.KERNELS
+    assert "selective_scan_bwd" in cuda.LAUNCHES
+    assert "selective_scan/save" in cuda.LAUNCHES
+    assert len(cuda._SIGNATURES["selective_scan_launch"]) == 15
+    assert len(cuda._SIGNATURES["selective_scan_bwd_launch"]) == 21
+
+
+GRADS = ("dx", "ddt", "dB", "dC", "dA", "dh0")
+
+
+def _cotangents(shape):
+    b, s, d, n = shape
+    rng = np.random.default_rng(100 + s)
+    return (rng.standard_normal((b, s, d)).astype(np.float32),
+            rng.standard_normal((b, d, n)).astype(np.float32))
+
+
+def _within(got, want, names=GRADS):
+    for g, w, name in zip(got, want, names):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(np.asarray(g, np.float32), w, rtol=0,
+                                   atol=TOL * float(np.abs(w).max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bwd_ref_matches_reference_vjp(shape):
+    ins = _inputs(shape)
+    dy, dh = _cotangents(shape)
+    _, vjp = jax.vjp(j_ref, *(jnp.asarray(a) for a in ins))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    got = selective_scan_bwd_ref(*_t(*ins), *_t(dy, dh))
+    _within([g.numpy() for g in got], want)
+
+
+@pytest.mark.parametrize("form", ["sequential", "chunked"])
+def test_bwd_ref_matches_autograd_through_plain_scans(form):
+    shape = SHAPES[1]
+    ins = _t(*_inputs(shape))
+    dy, dh = _t(*_cotangents(shape))
+    leaves = [t.clone().requires_grad_() for t in ins]
+    y, h = PLAIN[form](*leaves)
+    torch.autograd.backward([y, h], [dy, dh])
+    got = selective_scan_bwd_ref(*ins, dy, dh)
+    _within([g.numpy() for g in got], [t.grad.numpy() for t in leaves])
+
+
+@pytest.mark.parametrize("h0,dh_last", [(True, True), (False, False)])
+def test_autograd_function_wiring_on_cpu(h0, dh_last):
+    """`SelectiveScan` on CPU tensors (the chunked scan forward, the plain
+    backward) against autograd of the step-by-step scan; without h0 or
+    without a cotangent for h_last (training's case: the cache is not in
+    the loss)."""
+    shape = SHAPES[2]
+    ins = _t(*_inputs(shape))
+    if not h0:
+        ins[5] = None
+    dy, dh = _t(*_cotangents(shape))
+    outs = {}
+    for name, fn in (("function", selective_scan), ("ref",
+                                                      selective_scan_ref)):
+        leaves = [None if t is None else t.clone().requires_grad_()
+                  for t in ins]
+        y, h = fn(*leaves)
+        loss = (y * dy).sum() + ((h * dh).sum() if dh_last else 0.0)
+        loss.backward()
+        outs[name] = [t.grad.numpy() for t in leaves if t is not None]
+    _within(outs["function"], outs["ref"])
+    leaves = [t.clone().requires_grad_() for t in ins if t is not None]
+    assert selective_scan(*leaves)[0].grad_fn.name().startswith(
+        "SelectiveScan")
+
+
+def test_bf16_scan_refuses_autograd():
+    ins = [t.clone().requires_grad_() for t in _t(*_inputs(SHAPES[0]))]
+    with pytest.raises(NotImplementedError) as e:
+        selective_scan(*ins, scan_dtype=torch.bfloat16)
+    assert str(e.value) == BF16_BACKWARD_REFUSAL
+    with torch.no_grad():        # inference takes the bf16 scan
+        y, _ = selective_scan(*ins, scan_dtype=torch.bfloat16,
+                              scan_chunk=24)
+    want, _ = selective_scan_chunked(*(t.detach() for t in ins), chunk=24,
+                                     scan_dtype=torch.bfloat16)
+    assert torch.equal(y, want)
+
+
+def test_remat_recompute_keeps_the_exec_mode():
+    """On CUDA the autograd engine recomputes a remat'd layer in a thread
+    of its own, which the caller's exec mode (a ContextVar) does not
+    reach. A backward run from another thread stands in for it here: the
+    forward ran in mode torch, so the recompute must take the plain scan
+    (mode gpu would refuse the CPU tensors), and the gradients equal a
+    backward in the caller's thread."""
+    import threading
+    from repro_torch.models import model as TM
+    cfg = get_reduced("hymba-1.5b")
+    assert cfg.remat
+    toks = torch.from_numpy(np.random.default_rng(3).integers(1, 256,
+                                                             (2, 16)))
+    grads = []
+    for threaded in (False, True):
+        p = TM.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+        p.make_trainable()
+        with exec_.exec_mode("torch"):
+            loss = TM.forward(p, cfg, toks)[0].float().logsumexp(-1).mean()
+        errors = []
+
+        def backward():
+            try:
+                loss.backward()
+            except Exception as e:          # noqa: BLE001 (reported below)
+                errors.append(e)
+        if threaded:
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+        else:
+            backward()
+        assert not errors, errors
+        grads.append([q.grad.clone() for q in p.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

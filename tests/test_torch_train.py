@@ -395,10 +395,17 @@ def _scan_under_grad():
 @pytest.mark.parametrize("kernel,fn", [("flash_attention", _flash_under_grad),
                                        ("selective_scan", _scan_under_grad)])
 def test_gpu_mode_refuses_autograd_through_forward_only_kernels(kernel, fn):
+    """flash_attention has no backward kernel and refuses autograd; the
+    selective scan has one (`selective_scan_bwd`), so under autograd its
+    call reaches the kernel's check for CUDA tensors."""
     with exec_.exec_mode("gpu"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{kernel} CUDA kernel is forward-only"):
-            fn()
+        if kernel == "selective_scan":
+            with pytest.raises(RuntimeError, match="needs CUDA tensors"):
+                fn()
+        else:
+            with pytest.raises(NotImplementedError,
+                               match=f"{kernel} CUDA kernel is forward-only"):
+                fn()
         # without autograd the same call reaches the kernel, which needs
         # CUDA tensors
         with torch.no_grad(), pytest.raises(RuntimeError,
