@@ -89,19 +89,23 @@ is non-zero and no result line is printed):
    causal edge, the last ragged key dropped) that must exceed it; SDPA
    timed beside. selective_scan at
    tests/test_kernels.py's shapes within 2e-5 of the step-by-step plain
-   scan, and so at every N it is built for at ragged D and S, S 1, from
-   h0 = None and a nonzero h0 and with unaligned operands, beside a
-   planted fault (h0 ignored) that must break that limit; at hymba's
+   scan, and so at every N it is built for and every lane split
+   `scan_geometry` can give it, at ragged D and S, S 1, from h0 = None
+   and a nonzero h0 and with unaligned operands, beside a planted fault
+   (h0 ignored) that must break that limit; at hymba's
    prefill (8, 4,096, 3,200, 16) and decode (8, 1, 3,200, 16) shapes from
    a nonzero h0 within 1e-4 of max |y| and |h| of the chunked plain scan,
    timed at both shapes, the decode time beside its own bound; its bf16
    scan (`ssm_scan_dtype`) at both shapes within 2e-2 + 2e-2 |plain| of
    the plain bf16 scan. The scan's backward against the step-by-step
    plain backward within 1e-4 of each gradient's largest |value| at every
-   N, S 1 / 45 / 100, ragged D, a nonzero h0 and dh_last, and exp(dt A)
-   underflowing, then at one training microbatch (2 x 4,096 x 3,200 x
-   16); every case bit for bit on a second run, beside a planted fault
-   (the carry dropped at a chunk boundary); timed beside its plain
+   N, S 1 / 45 / 100, ragged D (one to three clusters, blocks past D), a
+   nonzero h0 and dh_last, exp(dt A) underflowing (every 7th step, and
+   at the 16-step window boundaries on and off the 32-step chunk grid),
+   every cluster size at D 300, then at one training microbatch (2 x
+   4,096 x 3,200 x 16); every case bit for bit on a second run, beside a
+   planted fault (the carry dropped at a chunk boundary, and at a window
+   boundary off the chunk grid); timed beside its plain
    version and its bound; the saving forward (its chunk states too)
    against the plain chunked scan window by window at that microbatch,
    timed. paged_attention at the reduced configs' heads (D 16, G 2) over
@@ -355,6 +359,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -3235,19 +3240,43 @@ def scan_within(torch, got, want, tol=2e-5):
                for g, w in zip(got, want))
 
 
+@contextlib.contextmanager
+def forced_scan_geometry(**fields):
+    """Make `scan_geometry` give `per` states a lane to the forward and the
+    saving forward and a `cluster` of blocks to the backward (at most its
+    blocks), so that an edge case runs that split whatever its shape."""
+    from repro_torch.kernels.selective_scan import kernel as ssk
+    orig = ssk.scan_geometry
+
+    def forced(b, s, d, n, sms, kind="forward"):
+        geo = orig(b, s, d, n, sms, kind)
+        if kind != "backward" and "per" in fields:
+            geo = ssk.split(d, n, fields["per"])
+        if kind == "backward" and "cluster" in fields:
+            geo = ssk.split(d, n, geo.per, fields["cluster"])
+        return geo
+    ssk.scan_geometry = forced
+    try:
+        yield
+    finally:
+        ssk.scan_geometry = orig
+
+
 def scan_edge_sweep(torch, rng):
     """selective_scan against the step-by-step plain scan within 2e-5 at
-    every N of STATE_SIZES, at SCAN_EDGE_SHAPES (D 77: no block's channel
-    count divides it, and the scalar x path; D 36: the vector one, with a
-    block reaching past D; S 45 and 100: not a multiple of the 32-step
-    staging chunk, 100 wrapping the 3-slot ring; S 1), from h0 = None and
-    from a nonzero h0; at N 16 also with every operand one float off
-    16-byte alignment (the kernel's scalar paths). A planted fault, the kernel run
-    from h0 = None held against the plain scan from the nonzero h0 (h0
-    ignored), must break that limit at every case. Returns the largest
-    |kernel - plain|."""
+    every N of STATE_SIZES and every lane split `scan_geometry` can give
+    it (`forward_pers`: 8, 4, 2 or 1 states a lane, forced), at
+    SCAN_EDGE_SHAPES (D 77: no block's channel count divides it, and the
+    scalar x path; D 36: the vector one, with a block reaching past D; S
+    45 and 100: not a multiple of the 32-step staging chunk or the
+    16-step window, 100 wrapping the 3-slot ring; S 1), from h0 = None
+    and from a nonzero h0; at N 16 also with every operand one float off
+    16-byte alignment (the kernel's scalar paths). A planted fault, the
+    kernel run from h0 = None held against the plain scan from the
+    nonzero h0 (h0 ignored), must break that limit at every case. Returns
+    the largest |kernel - plain|."""
     from repro_torch.kernels.selective_scan.kernel import (
-        STATE_SIZES, selective_scan_fused)
+        STATE_SIZES, forward_pers, selective_scan_fused)
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     worst, fault, err, n_cases = 0.0, math.inf, 0.0, 0
 
@@ -3266,26 +3295,28 @@ def scan_edge_sweep(torch, rng):
             if n == 16 and s > 1:
                 runs.append((", unaligned", tuple(off_by_one(t)
                                                   for t in ins)))
-            for how, args in runs:
-                got = selective_scan_fused(*args)
-                got0 = selective_scan_fused(*args[:5])
+            for (how, args), per in itertools.product(runs,
+                                                      forward_pers(n)):
+                with forced_scan_geometry(per=per):
+                    got = selective_scan_fused(*args)
+                    got0 = selective_scan_fused(*args[:5])
+                case = f"N {n}, {per} states a lane, {label}{how}"
                 w = max(scan_within(torch, got, want),
                         scan_within(torch, got0, want0))
-                check(w <= 1.0, f"selective_scan edge (N {n}, {label}{how}) "
-                      f"differs from the plain scan: {w:.3f} of 2e-5 + "
-                      f"2e-5 |plain|")
+                check(w <= 1.0, f"selective_scan edge ({case}) differs from "
+                      f"the plain scan: {w:.3f} of 2e-5 + 2e-5 |plain|")
                 f = scan_within(torch, got0, want)
-                check(f > 1.0, f"selective_scan edge (N {n}, {label}{how}): "
-                      f"the planted fault (h0 ignored) stays within the limit "
-                      f"({f:.3f})")
+                check(f > 1.0, f"selective_scan edge ({case}): the planted "
+                      f"fault (h0 ignored) stays within the limit ({f:.3f})")
                 worst, fault = max(worst, w), min(fault, f)
                 err = max(err, max(float((g - w_).abs().max())
                                     for g, w_ in zip(got, want)))
                 n_cases += 1
-    print(f"selective_scan edges: {n_cases} cases (N {STATE_SIZES}, ragged "
-          f"D and S, S 1, h0 None and nonzero, unaligned) within "
-          f"{worst:.3f} of 2e-5 + 2e-5 |plain|; the planted fault (h0 "
-          f"ignored) at least {fault:.1f} of it", flush=True)
+    print(f"selective_scan edges: {n_cases} cases (N {STATE_SIZES}, every "
+          f"lane split, ragged D and S, S 1, h0 None and nonzero, "
+          f"unaligned) within {worst:.3f} of 2e-5 + 2e-5 |plain|; the "
+          f"planted fault (h0 ignored) at least {fault:.1f} of it",
+          flush=True)
     return err
 
 
@@ -3428,7 +3459,13 @@ def selective_scan_bf16(torch, rng):
 # channels
 SCAN_BWD_TOL = 1e-4
 SCAN_BWD_EDGES = ((2, 1, 77, "S 1"), (2, 45, 77, "S 45, D 77"),
-                  (2, 100, 36, "S 100, D 36"))
+                  (2, 100, 36, "S 100, D 36"),
+                  (2, 100, 300, "S 100, D 300"))
+# exp(dt A) underflowing: dt of 1,000 on every 7th step, and on the steps
+# either side of the 16-step window boundaries 16 and 48 (off the 32-step
+# chunk grid) and 32 (on it)
+SCAN_BWD_UNDERFLOWS = (("every 7th step", slice(None, None, 7)),
+                       ("at window boundaries", [15, 16, 31, 32, 47, 48]))
 SCAN_BWD_NAMES = ("dx", "ddt", "dB", "dC", "dA", "dh0")
 
 
@@ -3463,13 +3500,13 @@ def scan_bwd_dropped_carry(torch, ins, dy, dh, tc: int):
             + [g_lo[4] + g_hi[4], g_lo[5]])
 
 
-def scan_bwd_check(torch, label, ins, dy, dh, fault_at):
+def scan_bwd_check(torch, label, ins, dy, dh, faults=()):
     """One case: the kernel's gradients against the plain backward, the
     saving forward's y and h_last equal to the plain forward kernel's, a
-    second backward bit for bit, and the planted fault (`fault_at`: the
-    carry dropped there) beyond the tolerance. Returns (worst of the
-    gradients in units of SCAN_BWD_TOL, the fault's, largest |kernel -
-    plain|)."""
+    second backward bit for bit, and each planted fault (`faults`: the
+    carry dropped at that step) beyond the tolerance. Returns (worst of
+    the gradients in units of SCAN_BWD_TOL, the faults' least, largest
+    |kernel - plain|, each gradient's distance)."""
     from repro_torch.kernels.selective_scan.kernel import selective_scan_fused
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
     (y, h), got = scan_bwd_kernel(torch, ins, dy, dh)
@@ -3490,12 +3527,13 @@ def scan_bwd_check(torch, label, ins, dy, dh, fault_at):
                                    zip(SCAN_BWD_NAMES, off))
           + f" of max |plain| (tolerance {SCAN_BWD_TOL})")
     f = math.inf
-    if fault_at is not None:
-        f = max(scan_bwd_off(got, scan_bwd_dropped_carry(
+    for fault_at in faults:
+        fa = max(scan_bwd_off(got, scan_bwd_dropped_carry(
             torch, ins, dy, dh, fault_at))) / SCAN_BWD_TOL
-        check(f > 1.0, f"selective_scan_bwd ({label}): the planted fault "
+        check(fa > 1.0, f"selective_scan_bwd ({label}): the planted fault "
               f"(the carry dropped at step {fault_at}) stays within the "
-              f"tolerance ({f:.3f})")
+              f"tolerance ({fa:.3f})")
+        f = min(f, fa)
     err = max(float((g - w_).abs().max()) for g, w_ in zip(got, want))
     return w, f, err, off
 
@@ -3503,42 +3541,66 @@ def scan_bwd_check(torch, label, ins, dy, dh, fault_at):
 def selective_scan_bwd_row(torch, rng):
     """The backward kernel against `selective_scan_bwd_ref` at every N of
     STATE_SIZES at SCAN_BWD_EDGES from a nonzero h0 and dh_last (S 1; S
-    45 and 100, not multiples of the 32-step chunk; D 77 and 36, a block
-    reaching past D), with dt of 1,000 on every 7th step at N 16 (exp(dt
-    A) underflows to 0: the carry stops there), then at one training
-    microbatch (2 x 4,096 x 3,200 x 16, zero h0 and dh_last as
-    in training); each within SCAN_BWD_TOL, bit for bit on a second run,
-    and a planted fault (the carry dropped at a chunk boundary) beyond
-    it. Timed at the training shape beside the plain backward and the
-    bound: the larger of the bytes (x, dt, B, C, A, the chunk states and
-    dy in, dx, dt, dB, dC, dA out, once) over the HBM rate, and one exp
-    and 12 flops per (b, t, d, n) over the SFU's and the f32 rate. No
-    PyTorch call computes it. Returns the row."""
+    45 and 100, not multiples of the 32-step chunk or the 16-step window;
+    D 77, 36 and 300, a block reaching past D, one to three clusters of
+    blocks and blocks wholly past D padding the last), with
+    SCAN_BWD_UNDERFLOWS at N 16 (exp(dt A) underflows to 0: the carry
+    stops there), and at N 16, S 100, D 300 under every cluster size
+    `scan_geometry` can give (1 to 8, forced); then at one training
+    microbatch (2 x 4,096 x 3,200 x 16, zero h0 and dh_last as in
+    training); each within SCAN_BWD_TOL, bit for bit on a second run,
+    and the planted faults (the carry dropped at the chunk boundary 32,
+    and at the window boundary 48 off the chunk grid) beyond it. Timed at
+    the training shape beside the plain backward and the
+    bound: the larger of the bytes the function must move (x, dt, B, C, A
+    and dy in, dx, dt, dB, dC, dA out, once; the forward's saved states
+    are the kernel's own intermediate, left out) over the HBM rate, and
+    one exp and 12 flops per (b, t, d, n) over the SFU's and the f32
+    rate. No PyTorch call computes it. Returns the row."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.selective_scan.kernel import (
-        SS_CHUNK, STATE_SIZES, selective_scan_bwd, selective_scan_fused)
+        MAX_CLUSTER, SS_CHUNK, SS_SAVE, STATE_SIZES, scan_geometry,
+        selective_scan_bwd, selective_scan_fused)
     from repro_torch.kernels.selective_scan.ops import SelectiveScan
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
     worst, fault, errs, n_cases = 0.0, math.inf, [], 0
+    off_grid = 3 * SS_SAVE                    # a window boundary, no chunk's
+
+    def case(label, b, s, d, n, under=None, **forced):
+        nonlocal worst, fault, n_cases
+        ins = list(scan_inputs(torch, rng, b, s, d, n))
+        cut = set()                           # steps whose exp underflows
+        if under is not None:
+            cut = set(range(s)[under[1]] if isinstance(under[1], slice)
+                      else (i for i in under[1] if i < s))
+            ins[1][:, sorted(cut)] = 1000.0
+            label += f", underflow {under[0]}"
+        dy = normal(torch, rng, (b, s, d), torch.float32)
+        dh = normal(torch, rng, (b, d, n), torch.float32)
+        # a carry dropped where exp(dt A) is 0 drops nothing: no fault there
+        with forced_scan_geometry(**forced):
+            w, f, e, _ = scan_bwd_check(
+                torch, label, ins, dy, dh,
+                [t for t in (SS_CHUNK, off_grid) if t < s and t not in cut])
+        worst, fault = max(worst, w), min(fault, f)
+        errs.append(e)
+        n_cases += 1
+
     for n in STATE_SIZES:
         for b, s, d, label in SCAN_BWD_EDGES:
-            for under in ((False, True) if n == 16 and s > 1 else (False,)):
-                ins = list(scan_inputs(torch, rng, b, s, d, n))
-                if under:
-                    ins[1][:, ::7] = 1000.0
-                dy = normal(torch, rng, (b, s, d), torch.float32)
-                dh = normal(torch, rng, (b, d, n), torch.float32)
-                w, f, e, _ = scan_bwd_check(
-                    torch, f"N {n}, {label}{', underflow' if under else ''}",
-                    ins, dy, dh, SS_CHUNK if s > SS_CHUNK else None)
-                worst, fault = max(worst, w), min(fault, f)
-                errs.append(e)
-                n_cases += 1
+            unders = SCAN_BWD_UNDERFLOWS if n == 16 and s > 1 else ()
+            for under in (None, *unders):
+                case(f"N {n}, {label}", b, s, d, n, under)
+    for cl in range(1, MAX_CLUSTER + 1):
+        case(f"N 16, S 100, D 300, clusters of {cl}", 2, 100, 300, 16,
+             cluster=cl)
     print(f"selective_scan_bwd edges: {n_cases} cases (N {STATE_SIZES}, "
-          f"S 1 / 45 / 100, D 77 / 36, nonzero h0 and dh_last, exp(dt A) "
-          f"underflowing at N 16) within {worst:.3f} of {SCAN_BWD_TOL} x "
-          f"max |plain|, bit for bit twice; the planted fault (the carry "
-          f"dropped at step {SS_CHUNK}) at least {fault:.1f} of it",
+          f"S 1 / 45 / 100, D 77 / 36 / 300, clusters of 1 to "
+          f"{MAX_CLUSTER}, nonzero h0 and dh_last, exp(dt A) underflowing "
+          f"at N 16 every 7th step and at window boundaries) within "
+          f"{worst:.3f} of {SCAN_BWD_TOL} x max |plain|, bit for bit "
+          f"twice; the planted faults (the carry dropped at steps "
+          f"{SS_CHUNK} and {off_grid}) at least {fault:.1f} of it",
           flush=True)
     cfg = get_config(HYMBA_ARCH)
     b, s = HTRAIN_SEQS // HTRAIN_MICRO, HYMBA_PROMPT
@@ -3547,7 +3609,7 @@ def selective_scan_bwd_row(torch, rng):
     ins[5] = torch.zeros_like(ins[5])
     dy = normal(torch, rng, (b, s, d), torch.float32)
     w, f, e, off = scan_bwd_check(torch, "training shape", ins, dy, None,
-                                  s // 2)
+                                  (s // 2,))
     errs.append(e)
     print(f"selective_scan_bwd B {b} S {s} D {d} N {n}: max |kernel - "
           f"plain| / max |plain| " + ", ".join(
@@ -3568,14 +3630,21 @@ def selective_scan_bwd_row(torch, rng):
     dispatch_ms = median_ms(torch, dispatch)
     elems = b * s * d * n
     t_bytes = 4 * (3 * ins[0].numel() + 2 * ins[1].numel()
-                   + 4 * ins[2].numel() + 2 * ins[4].numel()
-                   + chunks.numel()) / HBM_BYTES_PER_S
+                   + 4 * ins[2].numel()
+                   + 2 * ins[4].numel()) / HBM_BYTES_PER_S
     t_ops = max(elems / EXP_PER_S, 12 * elems / OPS_PER_S)
     bnd = ((t_ops * 1e3, "operations") if t_ops >= t_bytes
            else (t_bytes * 1e3, "bytes"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geos = {k: scan_geometry(b, s, d, n, sms, k)
+            for k in ("forward", "backward")}
     print(f"selective_scan_bwd at the training shape: {ms:.6f} ms, plain "
           f"{plain_ms:.3f} ms, bound {bnd[0]:.7f} ms by {bnd[1]} (bytes "
-          f"{t_bytes * 1e3:.7f}, operations {t_ops * 1e3:.7f})", flush=True)
+          f"{t_bytes * 1e3:.7f}, operations {t_ops * 1e3:.7f}); lane "
+          f"splits on {sms} SMs: " + ", ".join(
+              f"{k} {g.per} states a lane, {g.channels} channels a block, "
+              f"{b * g.blocks} blocks, clusters of {g.cluster}"
+              for k, g in geos.items()), flush=True)
     del ins, dy, chunks, leaves, y
     torch.cuda.empty_cache()
     return dict(max_abs_err=max(errs), lanes=b * d, ms=ms, plain_ms=plain_ms,
@@ -3584,25 +3653,25 @@ def selective_scan_bwd_row(torch, rng):
 
 
 def plain_saving_forward(torch, ins):
-    """The saving forward's plain version: the chunked scan one SS_CHUNK
+    """The saving forward's plain version: the chunked scan one SS_SAVE
     window at a time, each from the state the last one left, keeping the
     state entering each window. Returns (y, h_last, chunk states)."""
-    from repro_torch.kernels.selective_scan.kernel import SS_CHUNK
+    from repro_torch.kernels.selective_scan.kernel import SS_SAVE
     from repro_torch.kernels.selective_scan.ref import selective_scan_chunked
     x, dt, bm, cm, a, h = ins
     ys, states = [], []
-    for lo in range(0, x.shape[1], SS_CHUNK):
+    for lo in range(0, x.shape[1], SS_SAVE):
         states.append(h)
         y, h = selective_scan_chunked(
-            *(t[:, lo:lo + SS_CHUNK] for t in (x, dt, bm, cm)), a, h,
-            chunk=SS_CHUNK)
+            *(t[:, lo:lo + SS_SAVE] for t in (x, dt, bm, cm)), a, h,
+            chunk=SS_SAVE)
         ys.append(y)
     return torch.cat(ys, 1), h, torch.stack(states, 1)
 
 
 def saving_forward_row(torch, ins):
     """The forward kernel as autograd launches it (`save_chunks`: it also
-    writes the state entering every 32 steps) at the training microbatch
+    writes the state entering every 16 steps) at the training microbatch
     `ins`: y, h_last and the chunk states within 1e-4 of the largest |y|,
     |h| and |state| of `plain_saving_forward` (f32; other orders of
     sums), timed beside it. The bound: the larger of the bytes (x, y, dt,

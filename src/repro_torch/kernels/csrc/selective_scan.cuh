@@ -1,15 +1,22 @@
 // Shared by the selective scan kernels (`selective_scan.cu`, the forward
 // and the bf16 scan; `selective_scan_bwd.cu`, the backward): the lane
 // split, the cp.async staging of a chunk of dt, B, C and x (and dy for
-// the backward) and the launch attributes.
+// the backward) and the launch attributes. A lane holds PER consecutive
+// states of one channel (PER in 1, 2, 4, 8), N / PER consecutive lanes a
+// channel; the host picks PER and the block's lanes for each launch
+// (`kernels/selective_scan/kernel.py:scan_geometry`).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define SS_THREADS 128
+#include <type_traits>
+
+#define SS_THREADS 128           // lanes a block
 #define SS_PER 8                  // states a lane, at most
-#define SS_CHUNK 32
+#define SS_CHUNK 32               // steps a staging buffer holds
+#define SS_SAVE 16                // steps between saved states: a window
+#define SS_BATCH 16               // a lane's elements a forward batch holds
 #define SS_SLOTS 3
 #define SS_LOG2E 1.4426950408889634f
 
@@ -48,21 +55,45 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return ((uintptr_t)p & 15) == 0;
 }
 
-// PER contiguous floats at src (or zeros when src is null).
+// PER contiguous floats at src (or zeros when src is null); `vec`: src is
+// 16-byte aligned (float4s when PER is a multiple of 4).
 template <int PER>
 __device__ __forceinline__ void load_row(float (&v)[PER], const float* src,
                                          bool vec) {
+  if (src == nullptr) {
 #pragma unroll
-  for (int k = 0; k < PER; k += 4) {
-    if (src == nullptr) {
-      v[k] = v[k + 1] = v[k + 2] = v[k + 3] = 0.f;
-    } else if (vec) {
-      float4 f = *reinterpret_cast<const float4*>(src + k);
-      v[k] = f.x, v[k + 1] = f.y, v[k + 2] = f.z, v[k + 3] = f.w;
-    } else {
+    for (int k = 0; k < PER; ++k) v[k] = 0.f;
+    return;
+  }
+  if constexpr (PER % 4 == 0) {
+    if (vec) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[k + j] = src[k + j];
+      for (int k = 0; k < PER; k += 4) {
+        float4 f = *reinterpret_cast<const float4*>(src + k);
+        v[k] = f.x, v[k + 1] = f.y, v[k + 2] = f.z, v[k + 3] = f.w;
+      }
+      return;
     }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) v[k] = src[k];
+}
+
+// PER contiguous floats of shared memory at p, whose offset is a multiple
+// of PER floats (the staged B or C row of a lane's states).
+template <int PER>
+__device__ __forceinline__ void lds_row(float (&v)[PER], const float* p) {
+  if constexpr (PER % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < PER; k += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + k);
+      v[k] = f.x, v[k + 1] = f.y, v[k + 2] = f.z, v[k + 3] = f.w;
+    }
+  } else if constexpr (PER == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    v[0] = p[0];
   }
 }
 
@@ -120,8 +151,10 @@ __device__ __forceinline__ void stage_chunk(
     copy_rows<1>(bs, bmat + row * N, N, steps, N, all);
     copy_rows<1>(cs, cmat + row * N, N, steps, N, all);
   }
-  const float* xr = x + row * d + d0;
   const int live = d - d0;                   // columns left of the edge
+  // a block wholly past D (the backward's cluster padding) reads nothing
+  const size_t xo = live > 0 ? row * d + d0 : 0;
+  const float* xr = x + xo;
   // vec_x: d % 4 == 0 (ch is) and x (and dy) 16-byte aligned
   auto rows = [&](float* to, const float* from) {
     if (vec_x)
@@ -131,20 +164,21 @@ __device__ __forceinline__ void stage_chunk(
       copy_rows<1>(to, from, d, steps, ch, [live](int u) { return u < live; });
   };
   rows(xs, xr);
-  if (dy != nullptr) rows(xs + SS_CHUNK * ch, dy + row * d + d0);
+  if (dy != nullptr) rows(xs + SS_CHUNK * ch, dy + xo);
 }
 
-// The block's channel count at state size N.
-template <int N>
+// The block's channel count at state size N, PER states a lane.
+template <int N, int PER>
 __host__ __device__ constexpr int ss_channels() {
-  return SS_THREADS / (N / (N < SS_PER ? N : SS_PER));
+  return SS_THREADS / (N / PER);
 }
 
-// Dynamic shared memory of one launch: the SS_SLOTS staging buffers.
-template <int N>
+// Dynamic shared memory of one forward launch: the SS_SLOTS staging
+// buffers.
+template <int N, int PER>
 __host__ __device__ constexpr size_t ss_smem_bytes() {
   return SS_SLOTS * sizeof(float) * SS_CHUNK *
-         (1 + 2 * N + ss_channels<N>());
+         (1 + 2 * N + ss_channels<N, PER>());
 }
 
 // once per kernel: allow `smem` bytes of dynamic shared memory (over the

@@ -74,11 +74,10 @@ _SIGNATURES = {
     "flash_attention_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _F, _P],
     "selective_scan_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _I, _P],
-    "selective_scan_bwd_blocks": [_I, _I],
+                              _I, _I, _I, _I, _P],
     "selective_scan_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _P],
+                                  _I, _P],
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

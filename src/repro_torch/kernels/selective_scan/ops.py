@@ -17,8 +17,8 @@ BF16_BACKWARD_REFUSAL = (
 
 class SelectiveScan(torch.autograd.Function):
     """(y, h_last) of the f32 scan, differentiable in x, dt, B, C, A and
-    h0. The forward keeps the state entering every 32 steps; the backward
-    recomputes h inside a chunk from it. On CPU tensors both run the plain
+    h0. The forward keeps the state entering every 16 steps; the backward
+    recomputes h inside each such window from it. On CPU tensors both run the plain
     versions (the chunked scan, `selective_scan_bwd_ref`)."""
 
     @staticmethod

@@ -1,11 +1,16 @@
-"""The skiplist walk's launch geometry and the scan wrapper's refusals,
-on the CPU.
+"""The skiplist walk's and the selective scan's launch geometry and the
+scan wrapper's refusals, on the CPU.
 
 `skiplist_search.kernel.walk_geometry` sizes the walk's blocks so that a
-plan of a few thousand queries still covers every SM; the scan wrapper
+plan of a few thousand queries still covers every SM;
+`selective_scan.kernel.scan_geometry` picks the scan's lane split so that
+a training microbatch of two sequences fills the card; the scan wrapper
 checks its contract for every tensor before it dispatches. The kernels
 themselves run only on the card (chip_smoke.py).
 """
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -27,6 +32,61 @@ def test_walk_geometry_covers_the_sms(t, threads):
     got = sk.walk_geometry(t, H100_SMS)
     assert got == threads
     assert got == sk.BLOCK_SIZES[-1] or -(-t // got) >= H100_SMS
+
+
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc")
+# hymba-1.5b's scan (D 3,200) at a training microbatch, its served prefill
+# and decode, and the edge shapes of chip_smoke.py's sweeps
+SCAN_SHAPES = {"train": (2, 4096, 3200), "prefill": (8, 4096, 3200),
+               "decode": (8, 1, 3200), "D 77": (2, 45, 77),
+               "D 36": (2, 100, 36)}
+
+
+@pytest.mark.parametrize("n", ss.STATE_SIZES)
+@pytest.mark.parametrize("shape", list(SCAN_SHAPES))
+def test_scan_geometry(shape, n):
+    b, s, d = SCAN_SHAPES[shape]
+    fwd = ss.scan_geometry(b, s, d, n, H100_SMS)
+    bwd = ss.scan_geometry(b, s, d, n, H100_SMS, "backward")
+    for geo in (fwd, bwd):                  # a split the kernels are built for
+        assert geo.per * geo.lanes == n and geo.lanes <= 32
+        assert geo.channels * geo.lanes == ss.SS_THREADS
+        assert geo.blocks == -(-d // geo.channels)
+        assert geo.channels % 4 == 0        # x staged in float4s
+    assert fwd.per in ss.forward_pers(n) and fwd.cluster == 1
+    assert bwd.per == ss.BACKWARD_PER
+    assert bwd.cluster == min(bwd.blocks, ss.MAX_CLUSTER)
+    # the forward (saving or not: one split) takes the most states a lane
+    # whose lanes still give every SM MIN_WARPS_PER_SM warps
+    want = H100_SMS * ss.MIN_WARPS_PER_SM * 32
+    pers = ss.forward_pers(n)
+    assert b * d * n // fwd.per >= want or fwd.per == pers[-1]
+    assert all(b * d * n // p < want for p in pers if p > fwd.per)
+    if n == 16 and shape == "train":        # the card full at B 2
+        assert (fwd.per, fwd.channels, bwd.per) == (4, 32, 2)
+        assert b * d * n // fwd.per >= want and b * fwd.blocks >= H100_SMS
+        assert b * bwd.blocks // H100_SMS >= 3     # several blocks an SM
+    if n == 16 and shape in ("prefill", "decode"):   # 8 states a lane
+        assert (fwd.per, fwd.channels, fwd.blocks) == (8, 64, 50)
+
+
+def test_scan_geometry_matches_the_sources():
+    cuh = (CSRC / "selective_scan.cuh").read_text()
+    fwd = (CSRC / "selective_scan.cu").read_text()
+    bwd = (CSRC / "selective_scan_bwd.cu").read_text()
+
+    def define(text, name):
+        return int(re.search(rf"#define {name} (\d+)", text).group(1))
+    assert define(cuh, "SS_THREADS") == ss.SS_THREADS
+    assert define(cuh, "SS_CHUNK") == ss.SS_CHUNK
+    assert define(cuh, "SS_SAVE") == ss.SS_SAVE
+    assert define(bwd, "SS_BWD_PER") == ss.BACKWARD_PER
+    assert define(bwd, "SS_BWD_MAX_CLUSTER") == ss.MAX_CLUSTER
+    cases = {int(p) for p in re.findall(r"SS_PER_CASE\((\d+)\)", fwd)}
+    assert cases == set(ss.FORWARD_PERS)
+    with pytest.raises(ValueError, match="kind"):
+        ss.scan_geometry(2, 8, 8, 16, H100_SMS, "bwd")
 
 
 def _scan_inputs(b=2, s=5, d=6, n=8, dtype=torch.float32):

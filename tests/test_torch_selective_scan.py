@@ -176,8 +176,8 @@ def test_launcher_is_registered():
     assert "selective_scan_bwd" in cuda.KERNELS
     assert "selective_scan_bwd" in cuda.LAUNCHES
     assert "selective_scan/save" in cuda.LAUNCHES
-    assert len(cuda._SIGNATURES["selective_scan_launch"]) == 15
-    assert len(cuda._SIGNATURES["selective_scan_bwd_launch"]) == 21
+    assert len(cuda._SIGNATURES["selective_scan_launch"]) == 16
+    assert len(cuda._SIGNATURES["selective_scan_bwd_launch"]) == 22
 
 
 GRADS = ("dx", "ddt", "dB", "dC", "dA", "dh0")
